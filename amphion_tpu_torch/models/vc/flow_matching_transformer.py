@@ -4,12 +4,15 @@ and a clean prompt mel → target mel, by integrating the estimated flow from
 noise over a Python loop of ODE steps.
 
 The estimator runs in the dtype its parameters were cast to, once, when the
-pipeline was built (``compute_dtype``); the ODE state and the CFG std-rescale
-stay float32, as in JAX.
+pipeline was built (``compute_dtype``, see `prepare_for_inference`); with
+int8 or int4 its projections are quantized then too and run through kernel
+4 or 5, with bf16 activations. The ODE state and the CFG std-rescale stay
+float32, as in JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -19,12 +22,16 @@ from amphion_tpu_torch.modules.llama import (
     MLP2,
     LlamaConfig,
     LlamaEncoder,
+    cast_params,
+    quantize_llama_params,
     sinusoidal_step_embedding,
+    validate_quantized_tree,
 )
 from amphion_tpu_torch.ops.ragged import masked_std, pack_segments, unpack_target
 
 SOLVERS = ("euler", "midpoint")
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.bfloat16, "int4": torch.bfloat16}  # → activation dtype
 
 
 @dataclass(frozen=True)
@@ -36,12 +43,14 @@ class FMTConfig:
     num_heads: int = 16
     max_position: int = 8192
     cond_scale_factor: int = 1  # nearest upsampling of the condition stream
+    decode_quant: str = "none"  # "none" | "int8" | "int4" estimator projections
 
     def llama(self) -> LlamaConfig:
         return LlamaConfig(
             hidden_size=self.hidden, num_layers=self.num_layers,
             num_heads=self.num_heads, adaptive=True,
-            intermediate_size=self.hidden * 4, max_position=self.max_position)
+            intermediate_size=self.hidden * 4, max_position=self.max_position,
+            decode_quant=self.decode_quant)
 
 
 class DiffLlamaMel(nn.Module):
@@ -109,17 +118,41 @@ class FlowMatchingTransformer(nn.Module):
         return flow
 
 
+def prepare_for_inference(model: FlowMatchingTransformer,
+                          compute_dtype: str) -> FlowMatchingTransformer:
+    """The model an ODE in ``compute_dtype`` runs (JAX `_fmt_quant_prep` and
+    `_fmt_cast_params`): float32/bf16 cast the parameters; int8/int4 rebuild
+    the model with quantized estimator projections (fused q/k/v and
+    gate/up) from its bf16-cast weights. Call once, when the pipeline is
+    built."""
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} not in {tuple(DTYPES)}")
+    if compute_dtype in ("float32", "bfloat16"):
+        return cast_params(model, DTYPES[compute_dtype])
+    qcfg = dataclasses.replace(model.cfg, decode_quant=compute_dtype)
+    state = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+             for k, v in model.state_dict().items()}
+    state = quantize_llama_params(state, compute_dtype, cfg=qcfg.llama())
+    validate_quantized_tree(state, qcfg.llama())
+    with torch.device(next(model.parameters()).device):
+        qmodel = cast_params(FlowMatchingTransformer(qcfg), torch.bfloat16)
+    qmodel.load_state_dict(state)
+    return qmodel.eval()
+
+
 def _check(model: FlowMatchingTransformer, solver: str, compute_dtype: str):
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; expected one of {SOLVERS}")
     if compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype!r} not in {tuple(DTYPES)}")
     dt = DTYPES[compute_dtype]
+    quant = compute_dtype if compute_dtype in ("int8", "int4") else "none"
     have = next(model.parameters()).dtype
-    if have != dt:
-        raise ValueError(f"the flow-matching model holds {have} weights but "
-                         f"compute_dtype is {compute_dtype}: cast it once with "
-                         ".to(dtype) when it is built")
+    if have != dt or model.cfg.decode_quant != quant:
+        raise ValueError(f"the flow-matching model holds {have} weights and "
+                         f"{model.cfg.decode_quant} projections but compute_dtype "
+                         f"is {compute_dtype}: cast it once with "
+                         "prepare_for_inference when it is built")
     return dt
 
 

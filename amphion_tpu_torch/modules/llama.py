@@ -1,15 +1,27 @@
-"""Llama-style NAR backbone with adaptive RMSNorm (port of
-`amphion_tpu/modules/llama.py`, the full-sequence path without a KV cache).
+"""Llama-style backbone (port of `amphion_tpu/modules/llama.py`): the NAR
+encoder with adaptive RMSNorm (the flow-matching estimator) and the AR
+decoder with a KV cache (the Vevo AR), each with optional weight-only
+int8/int4 projections.
 
 Submodules carry the Flax scope names (``layer_3.attn.q_proj``,
-``input_norm.to_weight``, ``Dense_0``) so `utils/convert.from_flax` can load
-a JAX parameter tree with one generic walk. Full-sequence attention always
-goes through `ops/kernels/flash_attention.flash_attention`: the CUDA kernel
-on a CUDA tensor, its plain version on the CPU.
+``input_norm.to_weight``, ``attn.qkv_proj``, ``Dense_0``) so
+`utils/convert.from_flax` can load a JAX parameter tree with one generic
+walk. Full-sequence attention always goes through
+`ops/kernels/flash_attention.flash_attention`; quantized projections go
+through `ops/kernels/int8_matmul` (kernel 4) and `ops/kernels/int4_matmul`
+(kernel 5), and the single-step decode over the int8 KV cache, when
+``AMPHION_FUSED_DECODE_ATTN`` is set, through
+`ops/kernels/decode_attention` (kernel 8): each the CUDA kernel on a CUDA
+tensor, its plain version on the CPU.
+
+The decoder's caches are preallocated and written in place (JAX returns
+new arrays): ``LlamaDecoder.forward_cached`` returns the same list it was
+given.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -17,7 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from amphion_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
 from amphion_tpu_torch.ops.kernels.flash_attention import flash_attention
+from amphion_tpu_torch.ops.kernels.int4_matmul import (
+    int4_matmul,
+    pack_int4,
+    quantize_weight_int4,
+)
+from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
+
+QUANTS = ("none", "int8", "int4")
 
 
 @dataclass(frozen=True)
@@ -30,16 +51,17 @@ class LlamaConfig:
     rope_theta: float = 1e4
     max_position: int = 4096
     adaptive: bool = False  # adaptive RMSNorm on a conditioning vector
-    decode_quant: str = "none"  # int8/int4 decode is not ported yet
-    kv_quant: bool = False
+    # "none" | "int8" | "int4": weight-only quantized projections (QDense,
+    # QDense4); build the matching state with `quantize_llama_params`
+    decode_quant: str = "none"
+    # quantized q/k/v fuse into one qkv_proj and gate/up into one
+    # gateup_proj (4 matmuls per layer instead of 7)
+    fused_quant_proj: bool = True
+    kv_quant: bool = False  # int8 head-major KV cache in `LlamaDecoder`
 
     def __post_init__(self):
-        if self.decode_quant != "none":
-            raise NotImplementedError(
-                f"decode_quant={self.decode_quant!r}: quantized projections "
-                "are not ported yet")
-        if self.kv_quant:
-            raise NotImplementedError("kv_quant: the int8 KV cache is not ported yet")
+        if self.decode_quant not in QUANTS:
+            raise ValueError(f"decode_quant {self.decode_quant!r} not in {QUANTS}")
 
     @property
     def head_dim(self) -> int:
@@ -63,7 +85,11 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
+    def forward(self, x, passthrough: bool = False):
+        """``passthrough`` returns (x, scale) unnormalised, for a matmul that
+        applies the norm as its prologue (kernel 5)."""
+        if passthrough:
+            return x, self.scale
         var = x.float().pow(2).mean(dim=-1, keepdim=True)
         return (x * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
 
@@ -97,43 +123,294 @@ def rotary_tables(max_pos: int, head_dim: int, theta: float = 1e4, device=None):
     return freqs.cos().float(), freqs.sin().float()
 
 
-def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """x (B, T, H, D); cos/sin (T, D/2). Rotates in float32, returns x's dtype."""
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 keep_f32: bool = False):
+    """x (B, T, H, D); cos/sin (T, D/2). Rotates in float32 and returns x's
+    dtype, or float32 with ``keep_f32`` (the JAX decoder's promotion: its
+    bf16 q/k times the float32 tables stay float32)."""
     x1, x2 = x.float().chunk(2, dim=-1)
     c, s = cos[None, :, None, :], sin[None, :, None, :]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out if keep_f32 else out.to(x.dtype)
+
+
+# -- weight-only quantized projections -----------------------------------------
+
+
+def int4_group(k_in: int) -> int:
+    """Largest group size ≤ 128 dividing K (sub-channel int4 scales)."""
+    for g in (128, 64, 32, 16, 8, 4, 2):
+        if k_in % g == 0:
+            return g
+    raise ValueError(f"int4 decode needs even K, got {k_in}")
+
+
+class QDense(nn.Module):
+    """Weight-only int8 projection without bias: buffers ``kernel_q``
+    (N, K) int8 (the transpose of the Flax kernel_q) and ``scale`` (N,)
+    float32, applied by kernel 4. Output in x's dtype."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros((features, in_features), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(features))
+
+    def forward(self, x):
+        x2 = x.reshape(-1, x.shape[-1])
+        out = int8_matmul(x2, self.kernel_q, self.scale, out_dtype=x.dtype)
+        return out.reshape(*x.shape[:-1], -1)
+
+
+class QDense4(nn.Module):
+    """Weight-only int4 projection without bias: buffers ``kernel_q``
+    (N, K/2) uint8, two values per byte along K, and ``scale``
+    (K/group, N) float32, applied by kernel 5, with the RMSNorm prologue
+    when ``rms_scale`` is given. Output in x's dtype."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.group = int4_group(in_features)
+        self.register_buffer("kernel_q", torch.zeros((features, in_features // 2),
+                                                     dtype=torch.uint8))
+        self.register_buffer("scale", torch.ones((in_features // self.group, features)))
+
+    def forward(self, x, rms_scale=None):
+        x2 = x.reshape(-1, x.shape[-1])
+        out = int4_matmul(x2, self.kernel_q, self.scale, self.group,
+                          rms_scale=rms_scale, rms_eps=1e-6, out_dtype=x.dtype)
+        return out.reshape(*x.shape[:-1], -1)
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the floating parameters of ``module`` to ``dtype`` in place,
+    leaving buffers (the quantized projections' float32 scales) as they
+    are; returns the module."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return module
+
+
+def _proj(cfg: LlamaConfig, in_features: int, features: int) -> nn.Module:
+    if cfg.decode_quant == "int8":
+        return QDense(in_features, features)
+    if cfg.decode_quant == "int4":
+        return QDense4(in_features, features)
+    return nn.Linear(in_features, features, bias=False)
+
+
+PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+FUSED = {"qkv_proj": ("q_proj", "k_proj", "v_proj"), "gateup_proj": ("gate_proj", "up_proj")}
+
+
+def quantize_llama_params(state: dict, quant: str = "int8", fuse: bool = True,
+                          cfg: LlamaConfig | None = None) -> dict:
+    """Float state dict → quantized-projection state dict: every projection
+    ``<scope>.{q,k,v,o,gate,up,down}_proj.weight`` (N, K) becomes
+    ``kernel_q``/``scale`` buffers (`quantize_weight_int8`, or
+    `quantize_weight_int4` packed along K with `int4_group`); other entries
+    pass through. With ``fuse`` (``cfg.fused_quant_proj`` when ``cfg`` is
+    given) q/k/v concatenate along N into ``qkv_proj`` and gate/up into
+    ``gateup_proj`` before quantization, exact since the scales are per
+    output column. Quantizes in the weights' own dtype, as JAX does: pass a
+    bf16 state for the decode path."""
+    if quant not in ("int8", "int4"):
+        raise ValueError(f"quantize_llama_params: quant {quant!r} is not int8/int4")
+    if cfg is not None:
+        fuse = cfg.fused_quant_proj
+
+    def qdict(prefix, w):
+        if quant == "int4":
+            w_int, scale = quantize_weight_int4(w, int4_group(w.shape[1]))
+            return {f"{prefix}.kernel_q": pack_int4(w_int), f"{prefix}.scale": scale}
+        w_q, scale = quantize_weight_int8(w)
+        return {f"{prefix}.kernel_q": w_q, f"{prefix}.scale": scale}
+
+    def proj_of(key):
+        parts = key.split(".")
+        if len(parts) >= 2 and parts[-1] == "weight" and parts[-2] in PROJ_NAMES:
+            return ".".join(parts[:-2]), parts[-2]
+        return None
+
+    out, done = {}, set()
+    for key, val in state.items():
+        hit = proj_of(key)
+        if hit is None or val.ndim != 2:
+            out[key] = val
+            continue
+        scope, name = hit
+        fused = next((f for f, names in FUSED.items() if name in names), None)
+        dot = f"{scope}." if scope else ""
+        if fuse and fused and all(f"{dot}{n}.weight" in state for n in FUSED[fused]):
+            if (scope, fused) not in done:
+                done.add((scope, fused))
+                w = torch.cat([state[f"{dot}{n}.weight"] for n in FUSED[fused]], dim=0)
+                out.update(qdict(f"{dot}{fused}", w))
+            continue
+        out.update(qdict(f"{dot}{name}", val))
+    return out
+
+
+def validate_quantized_tree(state: dict, cfg: LlamaConfig) -> None:
+    """Raise when a quantized state's fused/unfused projection layout
+    disagrees with ``cfg.fused_quant_proj`` (it would otherwise surface as
+    missing keys at load time). No-op for unquantized configs."""
+    if cfg.decode_quant == "none":
+        return
+    keys = list(state)
+    found_fused = any(f".{f}." in f".{k}" for k in keys for f in FUSED)
+    found_unfused = any(k.endswith("q_proj.kernel_q") and not k.endswith("qkv_proj.kernel_q")
+                        for k in keys)
+    if cfg.fused_quant_proj and found_unfused and not found_fused:
+        raise ValueError(
+            "quantized state is UNFUSED (separate q/k/v projections) but "
+            "cfg.fused_quant_proj=True expects fused qkv_proj/gateup_proj: "
+            "re-quantize with quantize_llama_params(..., fuse=True)")
+    if not cfg.fused_quant_proj and found_fused:
+        raise ValueError(
+            "quantized state is FUSED (qkv_proj/gateup_proj) but "
+            "cfg.fused_quant_proj=False expects separate q/k/v: re-quantize "
+            "with fuse=False")
+
+
+# -- attention, MLP, blocks -------------------------------------------------------
+
+
+def _q8(x: torch.Tensor):
+    """(B, T, H, D) float32 → head-major int8 (B, H, T, D) and its
+    per-(position, head) scales (B, H, T): amax/127, floored at 1e-8."""
+    x = x.transpose(1, 2)
+    s = torch.clamp(x.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return torch.round(x / s[..., None]).to(torch.int8), s.float()
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
+        h = cfg.hidden_size
         nq, nkv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-        self.q_proj = nn.Linear(cfg.hidden_size, nq, bias=False)
-        self.k_proj = nn.Linear(cfg.hidden_size, nkv, bias=False)
-        self.v_proj = nn.Linear(cfg.hidden_size, nkv, bias=False)
-        self.o_proj = nn.Linear(nq, cfg.hidden_size, bias=False)
+        if cfg.decode_quant != "none" and cfg.fused_quant_proj:
+            self.qkv_proj = _proj(cfg, h, nq + 2 * nkv)
+        else:
+            self.q_proj = _proj(cfg, h, nq)
+            self.k_proj = _proj(cfg, h, nkv)
+            self.v_proj = _proj(cfg, h, nkv)
+        self.o_proj = _proj(cfg, nq, h)
 
-    def forward(self, x, cos, sin, kv_mask=None, causal=False):
+    def _qkv(self, x, rms_scale=None):
         c = self.cfg
         b, t, _ = x.shape
-        q = self.q_proj(x).view(b, t, c.num_heads, c.head_dim)
-        k = self.k_proj(x).view(b, t, c.kv_heads, c.head_dim)
-        v = self.v_proj(x).view(b, t, c.kv_heads, c.head_dim)
+        nq, nkv = c.num_heads * c.head_dim, c.kv_heads * c.head_dim
+        if hasattr(self, "qkv_proj"):
+            qkv = (self.qkv_proj(x, rms_scale) if rms_scale is not None
+                   else self.qkv_proj(x))
+            q, k, v = qkv.split([nq, nkv, nkv], dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        return (q.reshape(b, t, c.num_heads, c.head_dim),
+                k.reshape(b, t, c.kv_heads, c.head_dim),
+                v.reshape(b, t, c.kv_heads, c.head_dim))
+
+    def forward(self, x, cos, sin, kv_mask=None, causal=False):
+        """Full-sequence attention through the flash kernel."""
+        c = self.cfg
+        b, t, _ = x.shape
+        q, k, v = self._qkv(x)
         q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         out = flash_attention(q, k, v.contiguous(), kv_mask, causal)
+        return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
+
+    def forward_cached(self, x, cos, sin, cache, cache_index: int, keep=None,
+                       kv_mask=None, rms_scale=None):
+        """x (B, T, D) new tokens at positions ``cache_index + arange(T)``
+        (cos/sin are those rows); their K/V are written into ``cache`` in
+        place. ``keep`` (B or 1, 1, T, S) bool is the prefill's mask (the
+        JAX additive bias), ``kv_mask`` (B, S) the single-step key mask. With
+        ``rms_scale``, x is the unnormalised block input and the RMSNorm runs
+        as the int4 qkv matmul's prologue."""
+        c = self.cfg
+        b, t, _ = x.shape
+        dt = x.dtype
+        q, k, v = self._qkv(x, rms_scale)
+        q = apply_rotary(q, cos, sin, keep_f32=True)
+        k = apply_rotary(k, cos, sin, keep_f32=True)
+        end = cache_index + t
+        mha = c.kv_heads == c.num_heads
+        if len(cache) == 4:  # int8 head-major cache (B, H, S, D) + scales (B, H, S)
+            ck, cv, ks, vs = cache
+            kq, ksc = _q8(k)
+            vq, vsc = _q8(v.float())
+            ck[:, :, cache_index:end] = kq
+            cv[:, :, cache_index:end] = vq
+            ks[:, :, cache_index:end] = ksc
+            vs[:, :, cache_index:end] = vsc
+            if (mha and keep is None and t == 1 and kv_mask is None
+                    and os.environ.get("AMPHION_FUSED_DECODE_ATTN")):
+                valid = torch.full((b,), end, dtype=torch.int32, device=x.device)
+                o = decode_attention_int8(q[:, 0].float().contiguous(), ck, cv, ks, vs, valid)
+                return self.o_proj(o.to(dt).reshape(b, 1, c.num_heads * c.head_dim))
+            if mha and keep is None:
+                # scale after the dot: the per-(position, head) scales factor
+                # out of the head-dim contraction, so they multiply the scores
+                # and the probabilities, in the working dtype, as in JAX
+                s_len = ck.shape[2]
+                scores = torch.matmul(q.transpose(1, 2), ck.to(dt).float().transpose(2, 3))
+                scores = scores * ks.to(dt).float()[:, :, None, :] / np.sqrt(c.head_dim)
+                pos_k = torch.arange(s_len, device=x.device)
+                pos_q = cache_index + torch.arange(t, device=x.device)
+                ok = (pos_k[None, :] <= pos_q[:, None])[None, None]
+                if kv_mask is not None:
+                    ok = ok & (kv_mask[:, None, None, :] > 0)
+                scores = scores.masked_fill(~ok, torch.finfo(torch.float32).min)
+                probs = torch.softmax(scores, dim=-1).to(dt)
+                probs = probs * vs.to(dt)[:, :, None, :]
+                out = torch.matmul(probs, cv.to(dt)).transpose(1, 2)
+                return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
+            # dense dequantizing tail (a mask bias, or GQA)
+            k = (ck.to(dt) * ks.to(dt)[..., None]).transpose(1, 2)
+            v = (cv.to(dt) * vs.to(dt)[..., None]).transpose(1, 2)
+        else:  # dense cache (B, S, Hkv, D)
+            ck, cv = cache
+            ck[:, cache_index:end] = k.to(ck.dtype)
+            cv[:, cache_index:end] = v.to(cv.dtype)
+            k, v = ck, cv
+        if not mha:
+            rep = c.num_heads // c.kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k.float()) / np.sqrt(c.head_dim)
+        s_len = k.shape[1]
+        ok = (torch.arange(s_len, device=x.device) <= end - 1)[None, None, None, :]
+        if kv_mask is not None:
+            ok = ok & (kv_mask[:, None, None, :] > 0)
+        if keep is not None:
+            ok = ok & keep
+        scores = scores.masked_fill(~ok, torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dt))
         return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.ffn_dim, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.ffn_dim, bias=False)
-        self.down_proj = nn.Linear(cfg.ffn_dim, cfg.hidden_size, bias=False)
+        h, f = cfg.hidden_size, cfg.ffn_dim
+        if cfg.decode_quant != "none" and cfg.fused_quant_proj:
+            self.gateup_proj = _proj(cfg, h, 2 * f)
+        else:
+            self.gate_proj = _proj(cfg, h, f)
+            self.up_proj = _proj(cfg, h, f)
+        self.down_proj = _proj(cfg, f, h)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, rms_scale=None):
+        if hasattr(self, "gateup_proj"):
+            gu = (self.gateup_proj(x, rms_scale) if rms_scale is not None
+                  else self.gateup_proj(x))
+            gate, up = gu.chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaBlock(nn.Module):
@@ -153,6 +430,22 @@ class LlamaBlock(nn.Module):
         x = x + self.attn(self._norm(self.input_norm, x, cond), cos, sin,
                           kv_mask, causal)
         return x + self.mlp(self._norm(self.post_norm, x, cond))
+
+    def forward_cached(self, x, cos, sin, cache, cache_index, keep=None, kv_mask=None):
+        c = self.cfg
+        # fused-RMSNorm decode: the int4 qkv and gateup matmuls normalise x
+        # in their prologue (switch read as the JAX block reads it)
+        fuse_rms = (c.decode_quant == "int4" and c.fused_quant_proj and not c.adaptive
+                    and os.environ.get("AMPHION_FUSED_RMS") == "1")
+        h, in_scale = self.input_norm(x, passthrough=fuse_rms), None
+        if fuse_rms:
+            h, in_scale = h
+        x = x + self.attn.forward_cached(h, cos, sin, cache, cache_index, keep,
+                                         kv_mask, rms_scale=in_scale)
+        h, post_scale = self.post_norm(x, passthrough=fuse_rms), None
+        if fuse_rms:
+            h, post_scale = h
+        return x + self.mlp(h, rms_scale=post_scale)
 
 
 class LlamaEncoder(nn.Module):
@@ -177,6 +470,78 @@ class LlamaEncoder(nn.Module):
         for i in range(c.num_layers):
             x = getattr(self, f"layer_{i}")(x, cos, sin, cond=cond, kv_mask=mask)
         return self.final_norm(x, cond) if c.adaptive else self.final_norm(x)
+
+
+class LlamaDecoder(nn.Module):
+    """Causal stack decoded through a KV cache: a prefill of T tokens, then
+    single-token steps."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        if cfg.adaptive:
+            raise ValueError("LlamaDecoder takes a plain (non-adaptive) config")
+        self.cfg = cfg
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", LlamaBlock(cfg))
+        self.final_norm = RMSNorm(cfg.hidden_size)
+        self._rope = {}
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
+        """Per-layer caches: with ``kv_quant`` the int8 head-major
+        (B, H, S, D) K and V with float32 (B, H, S) scales, else (B, S, Hkv, D)
+        K and V in ``dtype``."""
+        c = self.cfg
+        if device is None:
+            device = self.final_norm.scale.device
+        if c.kv_quant:
+            shape = (batch, c.kv_heads, max_len, c.head_dim)
+            return [(torch.zeros(shape, dtype=torch.int8, device=device),
+                     torch.zeros(shape, dtype=torch.int8, device=device),
+                     torch.zeros(shape[:3], device=device),
+                     torch.zeros(shape[:3], device=device))
+                    for _ in range(c.num_layers)]
+        shape = (batch, max_len, c.kv_heads, c.head_dim)
+        return [(torch.zeros(shape, dtype=dtype, device=device),
+                 torch.zeros(shape, dtype=dtype, device=device))
+                for _ in range(c.num_layers)]
+
+    def _tables(self, device):
+        if device not in self._rope:
+            c = self.cfg
+            self._rope[device] = rotary_tables(c.max_position, c.head_dim, c.rope_theta,
+                                               device)
+        return self._rope[device]
+
+    def forward_cached(self, x, caches, cache_index: int, kv_valid=None):
+        """x (B, T, D) appended at ``cache_index`` → (hidden, caches).
+
+        ``kv_valid`` (B, S) marks the cache slots that hold real content (the
+        ragged serving layout left-pads shorter prompts). In a prefill
+        (T > 1) a pad query keeps its own slot attendable, so no softmax row
+        is fully masked; in a step (T == 1) the validity goes to attention
+        as a key mask, not a bias, which keeps the int8 cache's fast
+        paths."""
+        c = self.cfg
+        t = x.shape[1]
+        if cache_index + t > c.max_position:
+            raise ValueError(f"position {cache_index + t} exceeds max_position "
+                             f"{c.max_position}")
+        cos_t, sin_t = self._tables(x.device)
+        cos, sin = cos_t[cache_index: cache_index + t], sin_t[cache_index: cache_index + t]
+        keep = step_mask = None
+        if t > 1:
+            s_len = caches[0][0].shape[2 if len(caches[0]) == 4 else 1]
+            q_pos = cache_index + torch.arange(t, device=x.device)[:, None]
+            k_pos = torch.arange(s_len, device=x.device)[None, :]
+            keep = (k_pos <= q_pos)[None, None]
+            if kv_valid is not None:
+                keep = keep & (kv_valid[:, None, None, :] | (k_pos == q_pos)[None, None])
+        elif kv_valid is not None:
+            step_mask = kv_valid
+        for i in range(c.num_layers):
+            x = getattr(self, f"layer_{i}").forward_cached(
+                x, cos, sin, caches[i], cache_index, keep, step_mask)
+        return self.final_norm(x), caches
 
 
 def sinusoidal_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:

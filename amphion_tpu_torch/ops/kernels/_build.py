@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes plain C functions (pointers, ints, a
 stream) and compiles on its own into ``build/<name>-<hash>.so`` beside this
-file, the hash covering the source and the flags, so an edited source is
+file, the hash covering the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
@@ -53,6 +54,8 @@ class Kernel:
 
     def _target(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # shared headers
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD / f"{self.name}-{h.hexdigest()[:16]}.so"
 

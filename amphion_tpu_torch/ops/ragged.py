@@ -58,3 +58,38 @@ def masked_std(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     mean = (xf * w).sum(dim=(1, 2)) / n
     var = (torch.square(xf - mean[:, None, None]) * w).sum(dim=(1, 2)) / n
     return torch.sqrt(var)[:, None, None]
+
+
+def pack_segments_right(segments: list[torch.Tensor],
+                        lengths: list[torch.Tensor]) -> torch.Tensor:
+    """Right-aligned per-sample concatenation ``[pad | seg0_i | seg1_i | ...]``,
+    every sample ending at the buffer's last position, so an AR decode loop
+    appends at one shared ``cache_index`` (exact under rotary positions:
+    scores depend only on relative distance). The pad prefix holds clamped
+    segment-0 content: mask it with `right_pack_valid`."""
+    total = sum(s.shape[1] for s in segments)
+    dev = segments[0].device
+    lengths = [ln.to(dev, torch.long) for ln in lengths]
+    start = total - sum(lengths)  # (B,) left pad per sample
+    pos = torch.arange(total, device=dev)[None, :]
+    out = None
+    offset = start[:, None]
+    for seg, ln in zip(segments, lengths):
+        idx = torch.clamp(pos - offset, 0, seg.shape[1] - 1)
+        gathered = torch.gather(seg, 1, _expand(idx, seg))
+        if out is None:
+            out = gathered
+        else:
+            keep = (pos >= offset).view(-1, total, *([1] * (seg.ndim - 2)))
+            out = torch.where(keep, gathered, out)
+        offset = offset + ln[:, None]
+    return out
+
+
+def right_pack_valid(lengths: list[torch.Tensor], total: int,
+                     n_slots: int) -> torch.Tensor:
+    """(B, n_slots) bool: slot s holds real content under the right-aligned
+    layout of ``total`` packed positions (slots ≥ total, the decode
+    appends, are always valid)."""
+    start = total - sum(ln.to(torch.long) for ln in lengths)
+    return torch.arange(n_slots, device=start.device)[None, :] >= start[:, None]

@@ -100,10 +100,11 @@ def test_rotary_tables_match_jax():
 
 
 def test_llama_config_rejects_quantized_decode():
-    with pytest.raises(NotImplementedError):
-        LlamaConfig(decode_quant="int8")
-    with pytest.raises(NotImplementedError):
-        LlamaConfig(kv_quant=True)
+    """Only the quantizations the kernels take: none, int8, int4."""
+    with pytest.raises(ValueError, match="decode_quant"):
+        LlamaConfig(decode_quant="int2")
+    with pytest.raises(ValueError, match="decode_quant"):
+        LlamaConfig(decode_quant="fp8", kv_quant=True)
 
 
 def test_repcodec_tokens_match_jax_exactly():

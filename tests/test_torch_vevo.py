@@ -1,6 +1,7 @@
-"""PyTorch port, the Vevo-Timbre slice: flow-matching inference (fixed-shape
-and ragged), the whole serving path (style tokens → FM → Vocos) and the
-service's batch invariance, against the JAX package on the CPU.
+"""PyTorch port, the Vevo-Timbre and Vevo-Voice slices: flow-matching
+inference (fixed-shape and ragged), the whole serving paths (style tokens →
+FM → Vocos; content tokens → AR → FM → Vocos) and the service's batch
+invariance, against the JAX package on the CPU.
 
 Noise is made with numpy (or by the port's own generator) and injected
 into the JAX path with ``noise=``. Tolerances: 1e-4 absolute in float32,
@@ -9,6 +10,7 @@ bfloat16; tokens exact. ``flow_eval``'s std is the population std
 (``jnp.std``, ``unbiased=False`` in torch).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -19,6 +21,11 @@ import torch
 
 from amphion_tpu.models.codec.repcodec import RepCodec as JRepCodec
 from amphion_tpu.models.codec.repcodec import RepCodecConfig as JRepCodecConfig
+from amphion_tpu.models.vc.ar_transformer import ARTransformer as JAR
+from amphion_tpu.models.vc.ar_transformer import ARTransformerConfig as JARConfig
+from amphion_tpu.models.vc.ar_transformer import (
+    ar_transformer_generate_ragged as jax_ar_ragged,
+)
 from amphion_tpu.models.vc.flow_matching_transformer import FlowMatchingTransformer as JFMT
 from amphion_tpu.models.vc.flow_matching_transformer import FMTConfig as JFMTConfig
 from amphion_tpu.models.vc.flow_matching_transformer import fmt_inference as jax_fmt
@@ -32,16 +39,23 @@ from amphion_tpu.ops.mel import mel_spectrogram as jax_mel
 from amphion_tpu.pipelines.vevo_pipeline import VevoPipeline as JVevoPipeline
 from amphion_tpu.serving.service import VevoService as JVevoService
 from amphion_tpu_torch.models.codec.repcodec import RepCodec, RepCodecConfig
+from amphion_tpu_torch.models.vc.ar_transformer import (
+    ARTransformer,
+    ARTransformerConfig,
+    ar_transformer_generate_ragged,
+    prepare_for_decode,
+)
 from amphion_tpu_torch.models.vc.flow_matching_transformer import (
     FlowMatchingTransformer,
     FMTConfig,
     fmt_inference,
     fmt_inference_ragged,
+    prepare_for_inference,
 )
 from amphion_tpu_torch.models.vocoders.vocos import VocosConfig, VocosGenerator
 from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram
 from amphion_tpu_torch.pipelines.vevo_pipeline import VevoPipeline
-from amphion_tpu_torch.serving.service import VevoService
+from amphion_tpu_torch.serving.service import VevoService, voice_generators
 from amphion_tpu_torch.utils.convert import from_flax
 
 T = torch.from_numpy
@@ -124,6 +138,25 @@ def test_fmt_inference_bf16_matches_jax(fm_pair):
     tm16 = from_flax(FlowMatchingTransformer(FMTConfig(**FM)), params).bfloat16()
     out = fmt_inference(tm16, T(tokens), T(pmel), num_steps=3,
                         compute_dtype="bfloat16", noise=T(noise)).numpy()
+    assert np.abs(out - ref).max() <= 3e-2 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_fmt_inference_quantized_matches_jax(fm_pair, quant):
+    """int8/int4 estimator projections (kernels 4 and 5, bf16 activations):
+    the port quantizes its own weights at preparation, JAX inside its jit."""
+    jm, params, _ = fm_pair
+    rng = np.random.default_rng(15)
+    tokens = rng.integers(0, 64, (1, 12)).astype(np.int32)
+    pmel = (rng.standard_normal((1, 4, 8)) * 0.5).astype(np.float32)
+    noise = rng.standard_normal((1, 8, 8)).astype(np.float32)
+    ref = np.asarray(jax_fmt(jm, params, jnp.asarray(tokens), jnp.asarray(pmel), None,
+                             num_steps=1, compute_dtype=quant, noise=jnp.asarray(noise)))
+    tq = prepare_for_inference(from_flax(FlowMatchingTransformer(FMTConfig(**FM)), params),
+                               quant)
+    assert tq.cfg.decode_quant == quant
+    out = fmt_inference(tq, T(tokens), T(pmel), num_steps=1, compute_dtype=quant,
+                        noise=T(noise)).numpy()
     assert np.abs(out - ref).max() <= 3e-2 * np.abs(ref).max()
 
 
@@ -245,7 +278,7 @@ def test_timbre_service_batch_invariance(timbre_pair):
         futures = [svc.batcher.submit(r) for r in reqs]
         batched = [f.result(timeout=60) for f in futures]
         solo = [alone.batcher.submit(r).result(timeout=60) for r in reqs]
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="AR stage"):  # a timbre-only pipeline
             svc.synthesize(_audio(0, 0.5), _audio(1, 0.5), mode="voice")
     finally:
         svc.shutdown()
@@ -253,4 +286,103 @@ def test_timbre_service_batch_invariance(timbre_pair):
     assert svc.stats()["max_batch"] == 3
     for a, b, r in zip(batched, solo, reqs):
         assert a.shape == (len(r.target_style) * 32,) and np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+AR = dict(input_vocab=8, output_vocab=64, hidden=32, intermediate=64, num_layers=2,
+          num_heads=2, max_position=1024)
+CTOK = dict(TOK, codebook_size=8)
+VOICE = dict(len_step=256, max_content_len=256, max_prompt_len=64, max_new=10,
+             flow_matching_steps=2, audio_grid_s=0.25)
+
+
+@pytest.fixture(scope="module")
+def voice_pair(timbre_pair):
+    """The timbre pair plus a content tokenizer (vocab 8) and an AR."""
+    jpipe, pipe = timbre_pair
+    jctok = JRepCodec(JRepCodecConfig(**CTOK))
+    ctok_params = _perturb(jinit(jctok, jax.random.key(4), jnp.zeros((1, 20, 8))), 10, 0.3)
+    jar = JAR(JARConfig(**AR))
+    toks = jnp.zeros((1, 5), jnp.int32)
+    ar_params = _perturb(jinit(jar, jax.random.key(5), toks, jnp.ones((1, 5)), toks,
+                               jnp.ones((1, 5)), method=JAR.forward), 11, 0.02)
+    jvoice = JVevoPipeline(
+        content_tokenizer=jctok, style_tokenizer=jpipe.style_tokenizer, ar=jar,
+        fm=jpipe.fm, vocoder=jpipe.vocoder,
+        params={**jpipe.params, "content_tokenizer": ctok_params, "ar": ar_params},
+        hubert_extractor=jpipe.hubert_extractor, mel_cfg=jpipe.mel_cfg)
+    voice = dataclasses.replace(
+        pipe, content_tokenizer=from_flax(RepCodec(RepCodecConfig(**CTOK)), ctok_params),
+        ar=prepare_for_decode(from_flax(ARTransformer(ARTransformerConfig(**AR)), ar_params),
+                              "float32"))
+    return jvoice, voice
+
+
+def test_voice_service_matches_jax_slice(voice_pair):
+    """One Vevo-Voice request, greedy, float32: the port's front end (content
+    tokens of [ref ‖ src], the style prompt), its ragged AR decode (tokens
+    exact) and its FM + Vocos (the port's noise injected into JAX) against
+    the JAX VevoService's."""
+    jpipe, pipe = voice_pair
+    src, ref_audio, seed = _audio(3, 0.3), _audio(4, 0.25), 7
+    svc = VevoService(pipe, temperature=0.0, **VOICE)
+    jsvc = JVevoService(jpipe, temperature=0.0, compute_dtype="float32", **VOICE)
+    try:
+        wav = svc.synthesize(src, ref_audio, mode="voice", seed=seed)
+        req = svc._prepare_request(src, ref_audio, "voice", seed)
+        jreq = jsvc._prepare_request(src, ref_audio, "voice", seed)
+    finally:
+        svc.shutdown()
+        jsvc.batcher.shutdown()
+    np.testing.assert_array_equal(req.content.numpy(), jreq.content)
+    np.testing.assert_array_equal(req.prompt_out.numpy(), jreq.prompt_out)
+    np.testing.assert_array_equal(req.fm_prompt_tokens.numpy(), jreq.fm_prompt_tokens)
+    bucket = svc._bucket_of(req)
+    assert bucket == jsvc._bucket_of(jreq)
+    _, (lc, lo), lp_tok = bucket
+    pad = lambda a, n: np.pad(a, (0, n - len(a)))[None]  # noqa: E731
+    jt, jn = jax_ar_ragged(
+        jpipe.ar, jpipe.params["ar"], pad(jreq.content, lc), np.array([len(jreq.content)]),
+        jax.vmap(jax.random.key)(jnp.zeros((1,), jnp.uint32)), max_new=10, temperature=0.0,
+        prompt_output_tokens=pad(jreq.prompt_out, lo),
+        prompt_output_len=np.array([len(jreq.prompt_out)]), compute_dtype="float32")
+    tt, tn = ar_transformer_generate_ragged(
+        pipe.ar, T(pad(req.content.numpy(), lc)), torch.tensor([len(req.content)]), None,
+        max_new=10, temperature=0.0, prompt_output_tokens=T(pad(req.prompt_out.numpy(), lo)),
+        prompt_output_len=torch.tensor([len(req.prompt_out)]), compute_dtype="float32")
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    lt = max(int(jn[0]), 1)
+    noise = torch.randn((10, 8), generator=voice_generators(seed, "cpu")[1])
+    lp = len(jreq.fm_prompt_tokens)
+    mel = jax_fmt_ragged(
+        jpipe.fm, jpipe.params["fm"], pad(jreq.fm_prompt_tokens, lp_tok), np.array([lp]),
+        np.asarray(jt)[:, :10], np.array([lt]),
+        np.pad(jreq.fm_prompt_mel, ((0, lp_tok - lp), (0, 0)))[None], None, num_steps=2,
+        compute_dtype="float32", noise=jnp.asarray(noise.numpy()[None]))
+    jwav = np.asarray(jsvc._voc_jit(jpipe.params["vocoder"], mel,
+                                    jnp.asarray([lt])))[0, : lt * 32]
+    assert wav.shape == jwav.shape == (lt * 32,)
+    np.testing.assert_allclose(wav, jwav, atol=2e-4)
+
+
+def test_voice_service_batch_invariance(voice_pair):
+    """Sampled voice requests (temperature 1, top-k 5) give the same
+    waveform alone as in a batch of three."""
+    _, pipe = voice_pair
+    svc = VevoService(pipe, max_batch=3, max_wait_ms=5000, top_k=5, **VOICE)
+    alone = VevoService(pipe, max_batch=1, max_wait_ms=0, top_k=5, **VOICE)
+    try:
+        reqs = [svc._prepare_request(_audio(i, 0.2 + 0.05 * i), _audio(5 + i, 0.25),
+                                     "voice", 30 + i) for i in range(3)]
+        assert len({svc._bucket_of(r) for r in reqs}) == 1
+        futures = [svc.batcher.submit(r) for r in reqs]
+        batched = [f.result(timeout=60) for f in futures]
+        solo = [alone.batcher.submit(r).result(timeout=60) for r in reqs]
+    finally:
+        svc.shutdown()
+        alone.shutdown()
+    assert svc.stats()["max_batch"] == 3
+    for a, b in zip(batched, solo):
+        assert a.ndim == 1 and len(a) % 32 == 0 and np.isfinite(a).all()
         np.testing.assert_allclose(a, b, atol=1e-5)
