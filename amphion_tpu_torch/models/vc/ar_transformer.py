@@ -107,11 +107,6 @@ class ARTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
-    def _logits(self, h):
-        """lm_head row by row: each request's logits come from the same
-        product whatever the batch, so its draws do not depend on it."""
-        return torch.cat([self.lm_head(h[i: i + 1]) for i in range(h.shape[0])])
-
     def prefill(self, input_tokens, caches, prompt_output_tokens=None):
         """Prompt [IN_BOS, inputs, IN_EOS, OUT_BOS, prompt outputs] written
         at cache position 0 → (last logits, caches, prompt length)."""
@@ -128,7 +123,7 @@ class ARTransformer(nn.Module):
             ids.append(prompt_output_tokens.long())
         x = self.embed_tokens(torch.cat(ids, dim=1))
         h, caches = self.decoder.forward_cached(x, caches, 0)
-        return self._logits(h[:, -1]), caches, x.shape[1]
+        return self.lm_head(h[:, -1]), caches, x.shape[1]
 
     def prefill_ragged(self, input_tokens, input_len, caches, kv_valid,
                        prompt_output_tokens=None, prompt_output_len=None,
@@ -155,12 +150,12 @@ class ARTransformer(nn.Module):
                                   [input_len + 2, out_lens])
         h, caches = self.decoder.forward_cached(self.embed_tokens(ids), caches,
                                                 cache_index, kv_valid)
-        return self._logits(h[:, -1]), caches, ids.shape[1]
+        return self.lm_head(h[:, -1]), caches, ids.shape[1]
 
     def step(self, token, caches, cache_index: int, kv_valid=None):
         h, caches = self.decoder.forward_cached(self.embed_tokens(token)[:, None, :],
                                                 caches, cache_index, kv_valid)
-        return self._logits(h[:, -1]), caches
+        return self.lm_head(h[:, -1]), caches
 
 
 def prepare_for_decode(model: ARTransformer, compute_dtype: str) -> ARTransformer:

@@ -123,14 +123,24 @@ def rotary_tables(max_pos: int, head_dim: int, theta: float = 1e4, device=None):
     return freqs.cos().float(), freqs.sin().float()
 
 
+def full_rotary_tables(cos: torch.Tensor, sin: torch.Tensor):
+    """(T, D/2) tables → full-width (T, D) ``[cos | cos]`` and ``[-sin | sin]``,
+    so a rotation is two products and a sum."""
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  keep_f32: bool = False):
-    """x (B, T, H, D); cos/sin (T, D/2). Rotates in float32 and returns x's
-    dtype, or float32 with ``keep_f32`` (the JAX decoder's promotion: its
-    bf16 q/k times the float32 tables stay float32)."""
-    x1, x2 = x.float().chunk(2, dim=-1)
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    """x (B, T, H, D); cos/sin (T, D/2), or full width (T, D) from
+    `full_rotary_tables`. Rotates in float32, ``[x1 c - x2 s | x2 c + x1 s]``
+    (as ``x c + rot(x) s`` with the same roundings), and returns x's dtype,
+    or float32 with ``keep_f32`` (the JAX decoder's promotion: its bf16 q/k
+    times the float32 tables stay float32)."""
+    if 2 * cos.shape[-1] == x.shape[-1]:
+        cos, sin = full_rotary_tables(cos, sin)
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = xf * cos[None, :, None, :] + torch.cat([x2, x1], dim=-1) * sin[None, :, None, :]
     return out if keep_f32 else out.to(x.dtype)
 
 
@@ -321,52 +331,52 @@ class LlamaAttention(nn.Module):
         out = flash_attention(q, k, v.contiguous(), kv_mask, causal)
         return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
 
-    def forward_cached(self, x, cos, sin, cache, cache_index: int, keep=None,
-                       kv_mask=None, rms_scale=None):
+    def forward_cached(self, x, cos, sin, cache, cache_index: int, allowed,
+                       biased: bool = False, kv_mask=None, rms_scale=None):
         """x (B, T, D) new tokens at positions ``cache_index + arange(T)``
-        (cos/sin are those rows); their K/V are written into ``cache`` in
-        place. ``keep`` (B or 1, 1, T, S) bool is the prefill's mask (the
-        JAX additive bias), ``kv_mask`` (B, S) the single-step key mask. With
-        ``rms_scale``, x is the unnormalised block input and the RMSNorm runs
-        as the int4 qkv matmul's prologue."""
+        (cos/sin are those rows of the full-width tables); their K/V are
+        written into ``cache`` in place. ``allowed`` (B or 1, 1, T, S) bool
+        marks the keys each query may attend (causality, ``kv_mask`` and the
+        prefill's ``kv_valid`` combined, once per step, by the decoder);
+        ``biased`` says the JAX path would carry it as an additive bias (the
+        prefill), which sends an int8 cache to the dense dequantizing tail;
+        ``kv_mask`` (B, S), the single-step key mask, only decides whether
+        the fused kernel may run. With ``rms_scale``, x is the unnormalised
+        block input and the RMSNorm runs as the int4 qkv matmul's
+        prologue."""
         c = self.cfg
         b, t, _ = x.shape
         dt = x.dtype
+        h, hkv = c.num_heads, c.kv_heads
         q, k, v = self._qkv(x, rms_scale)
-        q = apply_rotary(q, cos, sin, keep_f32=True)
-        k = apply_rotary(k, cos, sin, keep_f32=True)
+        qk = apply_rotary(torch.cat([q, k], dim=2), cos, sin, keep_f32=True)
+        q, k = qk[:, :, :h], qk[:, :, h:]
         end = cache_index + t
-        mha = c.kv_heads == c.num_heads
+        mha = hkv == h
+        neg = torch.finfo(torch.float32).min
         if len(cache) == 4:  # int8 head-major cache (B, H, S, D) + scales (B, H, S)
             ck, cv, ks, vs = cache
-            kq, ksc = _q8(k)
-            vq, vsc = _q8(v.float())
-            ck[:, :, cache_index:end] = kq
-            cv[:, :, cache_index:end] = vq
-            ks[:, :, cache_index:end] = ksc
-            vs[:, :, cache_index:end] = vsc
-            if (mha and keep is None and t == 1 and kv_mask is None
+            kvq, kvs = _q8(torch.cat([k, v.float()], dim=2))
+            ck[:, :, cache_index:end] = kvq[:, :hkv]
+            cv[:, :, cache_index:end] = kvq[:, hkv:]
+            ks[:, :, cache_index:end] = kvs[:, :hkv]
+            vs[:, :, cache_index:end] = kvs[:, hkv:]
+            if (mha and not biased and t == 1 and kv_mask is None
                     and os.environ.get("AMPHION_FUSED_DECODE_ATTN")):
                 valid = torch.full((b,), end, dtype=torch.int32, device=x.device)
-                o = decode_attention_int8(q[:, 0].float().contiguous(), ck, cv, ks, vs, valid)
-                return self.o_proj(o.to(dt).reshape(b, 1, c.num_heads * c.head_dim))
-            if mha and keep is None:
+                o = decode_attention_int8(q[:, 0].contiguous(), ck, cv, ks, vs, valid)
+                return self.o_proj(o.to(dt).reshape(b, 1, h * c.head_dim))
+            if mha and not biased:
                 # scale after the dot: the per-(position, head) scales factor
                 # out of the head-dim contraction, so they multiply the scores
-                # and the probabilities, in the working dtype, as in JAX
-                s_len = ck.shape[2]
-                scores = torch.matmul(q.transpose(1, 2), ck.to(dt).float().transpose(2, 3))
+                # and the probabilities, in the working dtype, as in JAX (the
+                # int8 cache is exact in bf16 and float32 alike)
+                scores = torch.matmul(q.transpose(1, 2), ck.float().transpose(2, 3))
                 scores = scores * ks.to(dt).float()[:, :, None, :] / np.sqrt(c.head_dim)
-                pos_k = torch.arange(s_len, device=x.device)
-                pos_q = cache_index + torch.arange(t, device=x.device)
-                ok = (pos_k[None, :] <= pos_q[:, None])[None, None]
-                if kv_mask is not None:
-                    ok = ok & (kv_mask[:, None, None, :] > 0)
-                scores = scores.masked_fill(~ok, torch.finfo(torch.float32).min)
-                probs = torch.softmax(scores, dim=-1).to(dt)
+                probs = torch.softmax(scores.masked_fill(~allowed, neg), dim=-1).to(dt)
                 probs = probs * vs.to(dt)[:, :, None, :]
                 out = torch.matmul(probs, cv.to(dt)).transpose(1, 2)
-                return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
+                return self.o_proj(out.reshape(b, t, h * c.head_dim))
             # dense dequantizing tail (a mask bias, or GQA)
             k = (ck.to(dt) * ks.to(dt)[..., None]).transpose(1, 2)
             v = (cv.to(dt) * vs.to(dt)[..., None]).transpose(1, 2)
@@ -376,20 +386,12 @@ class LlamaAttention(nn.Module):
             cv[:, cache_index:end] = v.to(cv.dtype)
             k, v = ck, cv
         if not mha:
-            rep = c.num_heads // c.kv_heads
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
+            k = k.repeat_interleave(h // hkv, dim=2)
+            v = v.repeat_interleave(h // hkv, dim=2)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k.float()) / np.sqrt(c.head_dim)
-        s_len = k.shape[1]
-        ok = (torch.arange(s_len, device=x.device) <= end - 1)[None, None, None, :]
-        if kv_mask is not None:
-            ok = ok & (kv_mask[:, None, None, :] > 0)
-        if keep is not None:
-            ok = ok & keep
-        scores = scores.masked_fill(~ok, torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(dt)
+        probs = torch.softmax(scores.masked_fill(~allowed, neg), dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dt))
-        return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
+        return self.o_proj(out.reshape(b, t, h * c.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -431,7 +433,8 @@ class LlamaBlock(nn.Module):
                           kv_mask, causal)
         return x + self.mlp(self._norm(self.post_norm, x, cond))
 
-    def forward_cached(self, x, cos, sin, cache, cache_index, keep=None, kv_mask=None):
+    def forward_cached(self, x, cos, sin, cache, cache_index, allowed, biased=False,
+                       kv_mask=None):
         c = self.cfg
         # fused-RMSNorm decode: the int4 qkv and gateup matmuls normalise x
         # in their prologue (switch read as the JAX block reads it)
@@ -440,7 +443,7 @@ class LlamaBlock(nn.Module):
         h, in_scale = self.input_norm(x, passthrough=fuse_rms), None
         if fuse_rms:
             h, in_scale = h
-        x = x + self.attn.forward_cached(h, cos, sin, cache, cache_index, keep,
+        x = x + self.attn.forward_cached(h, cos, sin, cache, cache_index, allowed, biased,
                                          kv_mask, rms_scale=in_scale)
         h, post_scale = self.post_norm(x, passthrough=fuse_rms), None
         if fuse_rms:
@@ -506,10 +509,11 @@ class LlamaDecoder(nn.Module):
                 for _ in range(c.num_layers)]
 
     def _tables(self, device):
+        """Full-width rotary tables over ``max_position``, once per device."""
         if device not in self._rope:
             c = self.cfg
-            self._rope[device] = rotary_tables(c.max_position, c.head_dim, c.rope_theta,
-                                               device)
+            self._rope[device] = full_rotary_tables(
+                *rotary_tables(c.max_position, c.head_dim, c.rope_theta, device))
         return self._rope[device]
 
     def forward_cached(self, x, caches, cache_index: int, kv_valid=None):
@@ -518,29 +522,30 @@ class LlamaDecoder(nn.Module):
         ``kv_valid`` (B, S) marks the cache slots that hold real content (the
         ragged serving layout left-pads shorter prompts). In a prefill
         (T > 1) a pad query keeps its own slot attendable, so no softmax row
-        is fully masked; in a step (T == 1) the validity goes to attention
-        as a key mask, not a bias, which keeps the int8 cache's fast
-        paths."""
+        is fully masked; in a step (T == 1) the validity is a key mask, not a
+        bias, which keeps the int8 cache's fast paths. The mask is built once
+        here for every layer."""
         c = self.cfg
         t = x.shape[1]
-        if cache_index + t > c.max_position:
-            raise ValueError(f"position {cache_index + t} exceeds max_position "
-                             f"{c.max_position}")
+        end = cache_index + t
+        if end > c.max_position:
+            raise ValueError(f"position {end} exceeds max_position {c.max_position}")
         cos_t, sin_t = self._tables(x.device)
-        cos, sin = cos_t[cache_index: cache_index + t], sin_t[cache_index: cache_index + t]
-        keep = step_mask = None
-        if t > 1:
-            s_len = caches[0][0].shape[2 if len(caches[0]) == 4 else 1]
-            q_pos = cache_index + torch.arange(t, device=x.device)[:, None]
-            k_pos = torch.arange(s_len, device=x.device)[None, :]
-            keep = (k_pos <= q_pos)[None, None]
-            if kv_valid is not None:
-                keep = keep & (kv_valid[:, None, None, :] | (k_pos == q_pos)[None, None])
-        elif kv_valid is not None:
-            step_mask = kv_valid
+        cos, sin = cos_t[cache_index:end], sin_t[cache_index:end]
+        s_len = caches[0][0].shape[2 if len(caches[0]) == 4 else 1]
+        q_pos = cache_index + torch.arange(t, device=x.device)[:, None]
+        k_pos = torch.arange(s_len, device=x.device)[None, :]
+        allowed = (k_pos <= q_pos)[None, None]
+        step_mask = None
+        if kv_valid is not None:
+            if t > 1:
+                allowed = allowed & (kv_valid[:, None, None, :] | (k_pos == q_pos)[None, None])
+            else:
+                step_mask = kv_valid
+                allowed = allowed & kv_valid[:, None, None, :]
         for i in range(c.num_layers):
             x = getattr(self, f"layer_{i}").forward_cached(
-                x, cos, sin, caches[i], cache_index, keep, step_mask)
+                x, cos, sin, caches[i], cache_index, allowed, t > 1, step_mask)
         return self.final_norm(x), caches
 
 

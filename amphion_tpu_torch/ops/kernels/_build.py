@@ -49,6 +49,7 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.signatures = signatures  # C function → ctypes argtypes
         self.launches = 0
+        self.tagged = {}  # launches of a named variant (e.g. a fused prologue)
         self._lib = None
         self._lock = threading.Lock()
 
@@ -99,14 +100,22 @@ class Kernel:
                 self._lib = lib
             return self._lib
 
-    def launch(self, fn: str, *args) -> None:
+    def launch(self, fn: str, *args, tag: str | None = None) -> None:
         """Call C function ``fn`` (which launches on the given stream and
-        returns ``cudaGetLastError()``), raise on an error, count it."""
+        returns ``cudaGetLastError()``), raise on an error, count it (and
+        under ``tag`` when it runs a named variant)."""
         rc = getattr(self.lib(), fn)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         with self._lock:
             self.launches += 1
+            if tag is not None:
+                self.tagged[tag] = self.tagged.get(tag, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.tagged = {}
 
 
 def build_all(kernels: list[Kernel]) -> None:

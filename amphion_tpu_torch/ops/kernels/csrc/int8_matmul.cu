@@ -12,17 +12,22 @@
 //  * GEMV, M <= 8 (one decode step of a batch of requests): every weight byte
 //    is used M times, far below the 295 operations per byte where the tensor
 //    cores would matter, so it is bound by the weight bytes over 3.35 TB/s
-//    (22 MB per Vevo AR layer in int8). A warp owns two output columns and
-//    streams their K-long rows with 16-byte loads, 512 bytes per warp per
-//    step; x, rounded to bf16, sits in shared memory in tiles of 2048 columns
-//    and is read by every warp of the block; each lane sums its 16-column
-//    slices in float32 and the warp reduces over K with shuffles.
+//    (22 MB per Vevo AR layer in int8). The products still run on the tensor
+//    cores: the weights are the A operand (16 output columns per m16n8k16
+//    product) and x the B operand (its M <= 8 rows are the n8 side), so the
+//    work per weight byte, an int8 -> bf16 conversion by byte permutation and
+//    a share of one product, does not grow with M. A block of 8 warps owns
+//    16 columns and splits K between its warps; each lane streams 16-byte
+//    loads. (The first versions multiplied on the CUDA cores, converting
+//    every weight once per row of x: 13-22 us a call at M = 4 on the H100,
+//    growing with M, compute-bound.)
 //  * GEMM, larger M (prefill, the flow-matching estimator at M = B * L): at
 //    thousands of rows it is bound by the tensor cores' bf16 rate. A block of
 //    8 warps owns a 128 x 128 tile; each 32-wide K step stages bf16(x) and the
 //    weight tile converted int8 -> bf16 in shared memory, and mma.sync
-//    m16n8k16 accumulates in float32 (quant_common.cuh). Simple: one stage,
-//    no cp.async, no wgmma, which is where a faster version goes next.
+//    m16n8k16 accumulates in float32 (quant_common.cuh); the next step's
+//    loads go to registers while the current step computes. Still simple: no
+//    cp.async, no TMA, no wgmma, which is where a faster version goes next.
 
 #include "quant_common.cuh"
 
@@ -30,78 +35,70 @@ namespace {
 
 using namespace quant;
 
-constexpr int GEMV_WARPS = 4;
-constexpr int GEMV_COLS = 2;  // output columns per warp
-constexpr int KT = 2048;      // columns of x staged per shared-memory tile
+constexpr int GEMV_WARPS = 8;  // warps of a block, splitting K between them
 
 __device__ __forceinline__ float i8(uint32_t w, int j) {
   return (float)(int8_t)((w >> (8 * j)) & 0xFF);
 }
 
+// Four int8 (one 32-bit word) → bf16 pairs {byte 0, byte 1}, {byte 2, byte 3},
+// exactly: each byte, offset to unsigned, becomes the low mantissa bits of
+// the float 2^23 + u, from which 2^23 + 128 is subtracted.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float off = 8388736.f;  // 2^23 + 128
+  lo = pack_bf16(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - off,
+                 __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - off);
+  hi = pack_bf16(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - off,
+                 __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - off);
+}
+
+// One block per 16 output columns. Lane (g, t) = (lane / 4, lane % 4) reads
+// 16 consecutive bytes of weight rows n0 + g and n0 + g + 8 at k = c*64 +
+// 16t of each 64-wide chunk c, and the same 16 columns of x row g; the four
+// k16 products of the chunk take bytes 4s .. 4s+3 of those (step s), a
+// permutation of k that the A (weights) and B (x) fragments share, so the
+// sum is the same. The warps split the chunks and add their float32 partial
+// sums in shared memory.
 template <typename TX, typename TO>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 int8_gemv(const TX* __restrict__ x, const int8_t* __restrict__ w,
-          const float* __restrict__ scale, TO* __restrict__ out, int M, int N,
-          int K) {
-  __shared__ __align__(16) __nv_bfloat16 xs[GEMV_MAX_M * KT];
+          const float* __restrict__ scale, TO* __restrict__ out, int M, int N, int K) {
+  __shared__ float red[GEMV_WARPS][32][4];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = ((int)blockIdx.x * GEMV_WARPS + warp) * GEMV_COLS;
-  float acc[GEMV_COLS][GEMV_MAX_M];
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (int)blockIdx.x * 16;
+  const int na = n0 + g, nb = n0 + g + 8;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int c = warp; c < K / 64; c += GEMV_WARPS) {
+    const int k = c * 64 + 16 * t;
+    const uint4 wa = na < N ? *reinterpret_cast<const uint4*>(w + (size_t)na * K + k)
+                            : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 wb = nb < N ? *reinterpret_cast<const uint4*>(w + (size_t)nb * K + k)
+                            : make_uint4(0u, 0u, 0u, 0u);
+    uint32_t xp[8];
+    load_x_pairs<8>(xp, x, M, K, g, k, nullptr, nullptr);
+    const uint32_t ra[4] = {wa.x, wa.y, wa.z, wa.w}, rb[4] = {wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-  for (int c = 0; c < GEMV_COLS; ++c)
-#pragma unroll
-    for (int m = 0; m < GEMV_MAX_M; ++m) acc[c][m] = 0.f;
-
-  for (int kt0 = 0; kt0 < K; kt0 += KT) {
-    const int kt = min(KT, K - kt0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < M * kt; e += GEMV_WARPS * 32) {
-      const int m = e / kt, k = e % kt;
-      xs[m * KT + k] = __float2bfloat16_rn(load_x(x, (size_t)m * K + kt0 + k));
-    }
-    __syncthreads();
-    for (int kc = lane * 16; kc < kt; kc += 512) {
-      uint4 wv[GEMV_COLS];
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) {
-        const int n = n0 + c;
-        wv[c] = n < N ? *reinterpret_cast<const uint4*>(w + (size_t)n * K + kt0 + kc)
-                      : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int m = 0; m < GEMV_MAX_M; ++m) {
-        if (m < M) {
-          const uint4* xp = reinterpret_cast<const uint4*>(xs + m * KT + kc);
-          const uint4 xa = xp[0], xb = xp[1];
-          const uint32_t xw[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) {
-            const uint32_t ww[4] = {wv[c].x, wv[c].y, wv[c].z, wv[c].w};
-            float s = acc[c][m];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {  // x columns 2j, 2j+1
-              const float2 xf = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&xw[j]));
-              s = fmaf(xf.x, i8(ww[j >> 1], (2 * j) & 3), s);
-              s = fmaf(xf.y, i8(ww[j >> 1], (2 * j + 1) & 3), s);
-            }
-            acc[c][m] = s;
-          }
-        }
-      }
+    for (int s = 0; s < 4; ++s) {
+      uint32_t a[4];
+      i8x4_to_bf16(ra[s], a[0], a[2]);
+      i8x4_to_bf16(rb[s], a[1], a[3]);
+      mma_bf16(acc, a, xp[2 * s], xp[2 * s + 1]);
     }
   }
-
 #pragma unroll
-  for (int c = 0; c < GEMV_COLS; ++c) {
-    const int n = n0 + c;
+  for (int e = 0; e < 4; ++e) red[warp][lane][e] = acc[e];
+  __syncthreads();
+  if (warp != 0) return;
 #pragma unroll
-    for (int m = 0; m < GEMV_MAX_M; ++m) {
-      float v = acc[c][m];
+  for (int e = 0; e < 4; ++e) {
+    float v = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && m < M && n < N) store_out(out, (size_t)m * N + n, v * scale[n]);
-    }
+    for (int i = 0; i < GEMV_WARPS; ++i) v += red[i][lane][e];
+    const int n = e < 2 ? na : nb, m = 2 * t + (e & 1);
+    if (n < N && m < M) store_out(out, (size_t)m * N + n, v * scale[n]);
   }
 }
 
@@ -126,11 +123,17 @@ int8_gemm(const TX* __restrict__ x, const int8_t* __restrict__ w,
 
   // weight staging: thread -> row r, 16 consecutive k at c
   const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
+  float av[16];
+  uint4 wv = make_uint4(0u, 0u, 0u, 0u);
+  auto load_w = [&](int k0) {
+    wv = n0 + r < N ? *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c)
+                    : make_uint4(0u, 0u, 0u, 0u);
+  };
+  load_a(av, x, M, K, m0, 0);
+  load_w(0);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    stage_a(As, x, M, K, m0, k0, nullptr, nullptr);
-    uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + r < N) wv = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c);
+    __syncthreads();  // every warp is done with the previous step's tiles
+    store_a(As, av, k0, nullptr, nullptr);
     const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
     uint32_t packed[8];
 #pragma unroll
@@ -140,6 +143,10 @@ int8_gemm(const TX* __restrict__ x, const int8_t* __restrict__ w,
     dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
     dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
     __syncthreads();
+    if (k0 + BK < K) {  // the next step's loads fly during these products
+      load_a(av, x, M, K, m0, k0 + BK);
+      load_w(k0 + BK);
+    }
     mma_tile<WN>(acc, As, Bs, wm, wn);
   }
 
@@ -165,8 +172,7 @@ template <typename TX, typename TO>
 void launch(const void* x, const int8_t* w, const float* scale, void* out, int M,
             int N, int K, cudaStream_t st) {
   if (M <= GEMV_MAX_M) {
-    const int cols = GEMV_WARPS * GEMV_COLS;
-    int8_gemv<TX, TO><<<(N + cols - 1) / cols, GEMV_WARPS * 32, 0, st>>>(
+    int8_gemv<TX, TO><<<(N + 15) / 16, GEMV_WARPS * 32, 0, st>>>(
         (const TX*)x, w, scale, (TO*)out, M, N, K);
   } else {
     dim3 grid((N + BN8 - 1) / BN8, (M + BM - 1) / BM);
@@ -178,12 +184,12 @@ void launch(const void* x, const int8_t* w, const float* scale, void* out, int M
 }  // namespace
 
 // x (M, K) f32 (x_bf16 = 0) or bf16; w (N, K) int8; scale (N,) f32; out
-// (M, N) f32 (out_bf16 = 0) or bf16; all contiguous; K % 32 == 0.
+// (M, N) f32 (out_bf16 = 0) or bf16; all contiguous; K % 64 == 0.
 // Returns cudaGetLastError().
 extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* out,
                            int M, int N, int K, int x_bf16, int out_bf16,
                            void* stream) {
-  if (K % BK) return (int)cudaErrorInvalidValue;
+  if (K % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* wq = (const int8_t*)w;
   const float* s = (const float*)scale;

@@ -6,7 +6,9 @@
 // x, BN output columns) and walks K in steps of BK = 32. Each step stages
 // bf16(x) (BM x BK) and the weight tile converted to bf16 (BN x BK, the
 // weight's own (N, K) row-major layout) in shared memory with rows padded by
-// 16 bytes, so ldmatrix reads the A and B fragments without bank conflicts.
+// 16 bytes, so ldmatrix reads the A and B fragments without bank conflicts;
+// the next step's x and weight bytes are loaded into registers while the
+// current step's products run.
 // Warps are laid out 4 (rows) x 2 (columns); each computes 32 rows x BN/2
 // columns with m16n8k16 products and float32 accumulators.
 #pragma once
@@ -47,10 +49,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x element as the float value of its bf16 rounding
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 __device__ __forceinline__ float load_x(const float* x, size_t i) { return x[i]; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* x, size_t i) {
   return __bfloat162float(x[i]);
@@ -67,29 +65,6 @@ __device__ __forceinline__ float row_rinv(const TX* xr, int K, float eps) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   return 1.f / sqrtf(s / (float)K + eps);
-}
-
-// Stage bf16(x[m0 : m0+BM, k0 : k0+BK]) into As (rows past M are zero). With
-// rinv/g set, x is first normalised: x * rinv[row] * g[k] (the RMS prologue).
-template <typename TX>
-__device__ __forceinline__ void stage_a(__nv_bfloat16* As, const TX* x, int M, int K,
-                                        int m0, int k0, const float* rinv,
-                                        const float* g) {
-  for (int e = threadIdx.x; e < BM * BK / 4; e += GEMM_THREADS) {
-    const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (m0 + r < M) {
-      const size_t base = (size_t)(m0 + r) * K + k0 + c;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = load_x(x, base + j);
-        if (g != nullptr) v[j] = v[j] * rinv[r] * g[k0 + c + j];
-      }
-    }
-    uint32_t* dst = reinterpret_cast<uint32_t*>(As + r * AP + c);
-    dst[0] = pack_bf16(v[0], v[1]);
-    dst[1] = pack_bf16(v[2], v[3]);
-  }
 }
 
 // acc[i][j] (+)= A(32 rows of this warp) x B(this warp's WN columns) over one
@@ -118,6 +93,83 @@ __device__ __forceinline__ void mma_tile(float (&acc)[2][WN / 8][4],
       }
     }
   }
+}
+
+// Eight consecutive x values (16-byte aligned) as floats.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// GEMV: x row `row` (zero when row >= M) at k .. k+8*NP as NP bf16 pairs, the
+// order of the mma fragments; with g set, normalised first (x * rinv * g).
+template <int NP, typename TX>
+__device__ __forceinline__ void load_x_pairs(uint32_t (&p)[NP], const TX* x, int M, int K,
+                                             int row, int k, const float* rinv,
+                                             const float* g) {
+  if (row >= M) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) p[i] = 0u;
+    return;
+  }
+  const TX* xr = x + (size_t)row * K + k;
+#pragma unroll
+  for (int q = 0; q < NP / 4; ++q) {
+    float v[8];
+    load8(xr + 8 * q, v);
+    if (g != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = v[i] * rinv[row] * g[k + 8 * q + i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[4 * q + i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+  }
+}
+
+// GEMM A tile, software-pipelined: each thread owns row threadIdx.x / 2 of
+// the BM x BK tile and 16 consecutive k; the next step's values are loaded
+// into registers (load_a) while the current step computes, then rounded to
+// bf16, normalised first when g is set, and stored (store_a).
+template <typename TX>
+__device__ __forceinline__ void load_a(float (&v)[16], const TX* x, int M, int K, int m0,
+                                       int k0) {
+  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
+  if (m0 + r < M) {
+    const TX* p = x + (size_t)(m0 + r) * K + k0 + c;
+    load8(p, *reinterpret_cast<float(*)[8]>(&v[0]));
+    load8(p + 8, *reinterpret_cast<float(*)[8]>(&v[8]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_a(__nv_bfloat16* As, const float (&v)[16], int k0,
+                                        const float* rinv, const float* g) {
+  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float a = v[2 * i], b = v[2 * i + 1];
+    if (g != nullptr) {
+      a = a * rinv[r] * g[k0 + c + 2 * i];
+      b = b * rinv[r] * g[k0 + c + 2 * i + 1];
+    }
+    p[i] = pack_bf16(a, b);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(As + r * AP + c);
+  dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+  dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
 }
 
 __device__ __forceinline__ void store_out(float* o, size_t i, float v) { o[i] = v; }

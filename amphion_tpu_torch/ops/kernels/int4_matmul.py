@@ -116,9 +116,12 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int4_matmul runs on cuda or cpu, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int4_matmul takes float32 or bf16 x, got {x.dtype}")
-    if group not in (32, 64, 128):
-        raise ValueError(f"int4_matmul kernel takes group 32, 64 or 128, got {group}")
+    if group != 128:
+        raise ValueError(f"int4_matmul kernel takes group 128 (int4_group of K % 128 == 0), "
+                         f"got {group}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     g = None
     if rms_scale is not None:
         g = rms_scale.float().contiguous()
@@ -134,5 +137,6 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     INT4_MM.launch("int4_matmul", x.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
                    None if g is None else g.data_ptr(), out.data_ptr(), m, n, k,
                    group, int(x.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16), float(rms_eps), stream)
+                   int(out_dtype == torch.bfloat16), float(rms_eps), stream,
+                   tag=None if g is None else "rms_prologue")
     return out

@@ -66,9 +66,11 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8_matmul takes float32 or bf16 x, got {x.dtype}")
-    if k % 32:
-        raise ValueError(f"int8_matmul kernel needs K % 32 == 0, got K={k}")
+    if k % 64:
+        raise ValueError(f"int8_matmul kernel needs K % 64 == 0, got K={k}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     for name, t in (("w_q", w_q), ("scale", scale)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")

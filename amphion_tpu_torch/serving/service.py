@@ -14,8 +14,10 @@ mel) in the caller's thread, one at a time, and are coalesced by
 
 Each request draws from its own ``torch.Generator``s seeded from its
 ``seed`` (timbre: the FM noise from ``seed``; voice: the AR's tokens from
-``2 * seed + 1`` and the FM noise from ``2 * seed + 2``), so its result does
-not depend on the batch it lands in.
+``2 * seed + 1`` and the FM noise from ``2 * seed + 2``), and the voice
+decode always runs ``max_batch`` rows, so a request's tokens do not depend
+on the batch it lands in (its waveform only within the flow matching's
+float tolerance).
 """
 
 from __future__ import annotations
@@ -166,14 +168,23 @@ class VevoService:
         if mode == "voice":
             lc, lo = shape
             gens = [voice_generators(r.seed, dev) for r in reqs]
+            # the decode always runs max_batch rows (the first request
+            # repeated in the free ones, its rows discarded): every kernel
+            # then sees the same shapes whatever the batch holds, so a
+            # request's tokens do not depend on its company (PyTorch picks
+            # its reduction and GEMM algorithms by shape)
+            pad = [reqs[0]] * (self.batcher.max_batch - len(reqs))
+            rows = reqs + pad
+            ar_gens = [g[0] for g in gens] + [voice_generators(r.seed, dev)[0] for r in pad]
             toks, gen_len = ar_transformer_generate_ragged(
-                pipe.ar, torch.stack([_pad_to(r.content, lc) for r in reqs]),
-                torch.tensor([len(r.content) for r in reqs], device=dev),
-                [g[0] for g in gens], max_new=self.max_new,
+                pipe.ar, torch.stack([_pad_to(r.content, lc) for r in rows]),
+                torch.tensor([len(r.content) for r in rows], device=dev),
+                ar_gens, max_new=self.max_new,
                 temperature=self.temperature, top_k=self.top_k,
-                prompt_output_tokens=torch.stack([_pad_to(r.prompt_out, lo) for r in reqs]),
-                prompt_output_len=torch.tensor([len(r.prompt_out) for r in reqs], device=dev),
+                prompt_output_tokens=torch.stack([_pad_to(r.prompt_out, lo) for r in rows]),
+                prompt_output_len=torch.tensor([len(r.prompt_out) for r in rows], device=dev),
                 compute_dtype=pipe.compute_dtype)
+            toks, gen_len = toks[: len(reqs)], gen_len[: len(reqs)]
             tl = [max(int(n), 1) for n in gen_len.cpu()]
             lt_tok = self._ladder(max(tl), self.max_new)
             target = toks[:, :lt_tok]

@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`amphion_tpu_torch`) on one CUDA card.
 
-Builds the CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version, serves four
-concurrent Vevo-Timbre requests at the full width of ``config/vevo.json``
-(random weights from ``--seed``), checks the output, the kernels' launch
-counts and batch invariance, then times each kernel at the shapes the
-serving path gave it. Run from the repository root:
+Builds the five CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
+with nvcc (one process each, in parallel) and holds each against its plain
+PyTorch version. Then, at the full width of ``config/vevo.json`` with
+random weights from ``--seed``:
 
-    python3 chip_smoke.py [--seed 0]
+- Vevo-Timbre: four concurrent requests (mel and flash-attention kernels);
+- Vevo-Voice: four concurrent requests in int8, then in int4 (AR decode of
+  ``--max-new`` steps through the int8/int4 matmul kernels and the int8 KV
+  cache, then flow matching through the same kernels);
+- one single-utterance int8 Vevo-Voice run with the fused decode-attention
+  kernel (``AMPHION_FUSED_DECODE_ATTN=1``) and an int4 decode with the
+  fused RMSNorm prologue (``AMPHION_FUSED_RMS=1``);
+
+checking outputs, launch counts against counts worked out beforehand and
+batch invariance, then times each kernel at the shapes the paths gave it
+and profiles one voice batch. Run from the repository root:
+
+    python3 chip_smoke.py [--seed 0] [--max-new 768]
 
 Exits nonzero on any failure, and at once when there is no CUDA card. The
 second-to-last line of standard output is the card's name and power limit,
@@ -73,6 +83,21 @@ def gpu_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` replayed as one CUDA graph (the host's
+    launch overhead taken out), by CUDA events after warm-up."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return gpu_ms(graph.replay, iters)
 
 
 def check(name: str, ok: bool, detail: str) -> None:
@@ -173,13 +198,13 @@ def reference_phase(seed: int) -> None:
           f"{rel:.2g} (tol 1e-3)")
 
 
-def serve(svc, audio: list, seeds: list) -> tuple[list, list, float]:
+def serve(svc, audio: list, seeds: list, mode: str = "timbre") -> tuple[list, list, float]:
     """Submit requests from one thread each; returns (waveforms, latencies, wall)."""
     wavs, lats = [None] * len(audio), [None] * len(audio)
 
     def one(i):
         t0 = time.perf_counter()
-        wavs[i] = svc.synthesize(audio[i][1], audio[i][0], seed=seeds[i])
+        wavs[i] = svc.synthesize(audio[i][1], audio[i][0], mode=mode, seed=seeds[i])
         lats[i] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(audio))]
@@ -263,35 +288,44 @@ def slice_phase(seed: int, mel_k, flash_k) -> dict:
             "mel_lengths": sorted(mel_inputs), "perf": perf}
 
 
-def profile_rerun(svc, audio, seeds) -> dict:
+KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("mel", "mel_kernel"),
+                 ("int8_matmul", "int8_ge"), ("int4_matmul", "int4_ge"),
+                 ("decode_attn_int8", "decode_"), ]
+LIBRARY_GEMM = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+
+
+def profile_rerun(svc, audio, seeds, mode: str = "timbre") -> dict:
+    """A rerun of the batch under torch.profiler (device activity only):
+    wall, device-busy share and device time by group (the port's kernels by
+    name, library GEMMs, the rest). The voice batch launches about a million
+    kernels, so the kernel records are summed straight from the profiler's
+    results instead of through ``key_averages``."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(svc, audio, seeds)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, wall = serve(svc, audio, seeds, mode)
         torch.cuda.synchronize()
-    groups = {"flash_attn_fwd": 0.0, "mel": 0.0, "gemm": 0.0, "other": 0.0}
-    top = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
+    t0 = time.perf_counter()
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups.update(gemm=0.0, other=0.0)
+    by_name, n_kernels = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        name = e.key
-        if "flash_fwd" in name:
-            groups["flash_attn_fwd"] += us
-        elif "mel_kernel" in name:
-            groups["mel"] += us
-        elif any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
-            groups["gemm"] += us
-        else:
-            groups["other"] += us
-        top.append((us, name[:80]))
+        name, us = e.name(), e.duration_ns() / 1e3
+        by_name[name] = by_name.get(name, 0.0) + us
+        n_kernels += 1
+    for name, us in by_name.items():
+        group = next((g for g, pat in KERNEL_GROUPS if pat in name), None)
+        if group is None:
+            group = "gemm" if any(t in name for t in LIBRARY_GEMM) else "other"
+        groups[group] += us
     busy = sum(groups.values()) / 1e6
-    top.sort(reverse=True)
-    return {"wall_s": round(wall, 4), "device_busy_s": round(busy, 4),
-            "device_busy_share": round(busy / wall, 4),
-            "by_group_s": {k: round(v / 1e6, 4) for k, v in groups.items()},
-            "top_kernels_ms": [[n, round(us / 1e3, 3)] for us, n in top[:8]]}
+    top = sorted(((us, n[:80]) for n, us in by_name.items()), reverse=True)
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_records": n_kernels, "summed_in_s": time.perf_counter() - t0,
+            "by_group_s": {k: v / 1e6 for k, v in groups.items()},
+            "top_kernels_ms": [[n, us / 1e3] for us, n in top[:8]]}
 
 
 def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
@@ -370,9 +404,449 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
     ]
 
 
+# -- Vevo-Voice: kernels 4, 5 and 8 ----------------------------------------------
+
+DEV = "cuda"  # the card the smoke drives
+AR_LAYERS, AR_HIDDEN, AR_HEADS, AR_FFN = 24, 1280, 20, 4096  # config/vevo.json, FFN 4096
+FM_LAYERS, FM_HIDDEN, FM_STEPS = 16, 1024, 32
+AR_PROJ = [(AR_HIDDEN, 3 * AR_HIDDEN), (AR_HIDDEN, AR_HIDDEN), (AR_HIDDEN, 2 * AR_FFN),
+           (AR_FFN, AR_HIDDEN)]  # (K, N) of qkv, o, gateup, down
+FM_QKV = (6144, FM_HIDDEN, 3 * FM_HIDDEN)  # (M, K, N): B * L rows, e.g. 4 * 1536
+
+
+def quant_kernel_phase(seed: int) -> dict:
+    """Kernels 4 and 5 (with and without the RMSNorm prologue) against
+    their plain versions at the voice path's shapes. Both matmul paths sum
+    bf16 products in float32 in another order than the plain version:
+    float32 output within 1e-4 of max|ref|; with the prologue the bf16
+    rounding of the normalised x may flip, so within 2e-2 of max|ref| and a
+    relative Frobenius error of 1e-3."""
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_ref, pack_int4, quantize_weight_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul, int8_matmul_ref, quantize_weight_int8)
+
+    dev = torch.device(DEV)
+    g = torch.Generator(dev).manual_seed(seed + 7)
+    errs = {"int8_matmul": 0.0, "int4_matmul": 0.0}
+    shapes = [(4, k, n) for k, n in AR_PROJ] + [FM_QKV]
+    for m, k, n in shapes:
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.03).bfloat16()
+        w_q, sc = quantize_weight_int8(w)
+        out, ref = int8_matmul(x, w_q, sc), int8_matmul_ref(x, w_q, sc)
+        err = (out - ref).abs().max().item()
+        if m == 4:
+            errs["int8_matmul"] = max(errs["int8_matmul"], err)
+        check(f"int8_matmul M={m} K={k} N={n}", err <= 1e-4 * ref.abs().max().item(),
+              f"max|err| {err:.3g}, max|ref| {ref.abs().max().item():.3g} (tol 1e-4 rel)")
+        w_int, sc4 = quantize_weight_int4(w, 128)
+        w_p = pack_int4(w_int)
+        gain = 1 + 0.1 * torch.randn((k,), generator=g, device=dev)
+        for rms in (None, gain):
+            out = int4_matmul(x, w_p, sc4, 128, rms, 1e-6)
+            ref = int4_matmul_ref(x, w_p, sc4, 128, rms, 1e-6)
+            err = (out - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if rms is None:
+                ok, detail = err <= 1e-4 * scale, f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})"
+                if m == 4:
+                    errs["int4_matmul"] = max(errs["int4_matmul"], err)
+            else:
+                fro = ((out - ref).norm() / ref.norm()).item()
+                ok = err <= 2e-2 * scale and fro <= 1e-3
+                detail = (f"max|err| {err:.3g} (tol 2e-2 of {scale:.3g}), rel Frobenius "
+                          f"{fro:.3g} (tol 1e-3)")
+            check(f"int4_matmul M={m} K={k} N={n} rms_prologue={rms is not None}", ok, detail)
+    return errs
+
+
+def decode_attn_check(seed: int, cache_len: int) -> float:
+    """Kernel 8 against its plain version at the single-utterance cache
+    (B = 1, H = 20, S = cache_len, D = 64), valid_len below S; within 1e-4
+    of max|ref| (float32 sums in another order). Returns the max error."""
+    from amphion_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_int8, decode_attention_int8_ref)
+
+    dev = torch.device(DEV)
+    g = torch.Generator(dev).manual_seed(seed + 8)
+    worst = 0.0
+    b, h, d = 1, AR_HEADS, AR_HIDDEN // AR_HEADS
+    q = torch.randn((b, h, d), generator=g, device=dev)
+    ck, cv = (torch.randint(-127, 128, (b, h, cache_len, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, h, cache_len), generator=g, device=dev) * 0.02 for _ in range(2))
+    for valid in (cache_len - 311, cache_len // 2, 1):
+        lens = torch.tensor([valid], device=dev, dtype=torch.int32)
+        out = decode_attention_int8(q, ck, cv, ks, vs, lens)
+        ref = decode_attention_int8_ref(q, ck, cv, ks, vs, lens)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        check(f"decode_attn_int8 B={b} H={h} S={cache_len} D={d} valid_len={valid}",
+              err <= 1e-4 * ref.abs().max().item(), f"max|err| {err:.3g} (tol 1e-4 rel)")
+    return worst
+
+
+def ar_reference_phase(seed: int) -> None:
+    """A small float32 AR decoded greedily on the card and on the CPU."""
+    import copy
+
+    from amphion_tpu_torch.models.vc.ar_transformer import (
+        ARTransformer, ARTransformerConfig, ar_transformer_generate)
+
+    torch.manual_seed(seed)
+    cpu = ARTransformer(ARTransformerConfig(input_vocab=32, output_vocab=256, hidden=128,
+                                            intermediate=256, num_layers=2, num_heads=4,
+                                            max_position=512)).eval()
+    gpu = copy.deepcopy(cpu).to(DEV)
+    rng = np.random.default_rng(seed + 3)
+    inp = torch.from_numpy(rng.integers(0, 32, (2, 40)))
+    pout = torch.from_numpy(rng.integers(0, 256, (2, 12)))
+    outs = [ar_transformer_generate(m, inp, None, max_new=48, temperature=0.0,
+                                    prompt_output_tokens=pout, compute_dtype="float32")[0].cpu()
+            for m in (gpu, cpu)]
+    agree = (outs[0] == outs[1]).float().mean().item()
+    check("reference: small f32 AR, greedy, card vs CPU", agree == 1.0,
+          f"tokens equal {agree:.4f} (tol: all)")
+
+
+class ARRecorder:
+    """Wraps the service's ragged AR decode and keeps each batch's inputs
+    and outputs, so the smoke can read the generated tokens."""
+
+    def __init__(self, service_mod):
+        self.mod, self.inner, self.calls = service_mod, service_mod.ar_transformer_generate_ragged, []
+        service_mod.ar_transformer_generate_ragged = self
+
+    def __call__(self, model, input_tokens, input_len, *a, **kw):
+        toks, n = self.inner(model, input_tokens, input_len, *a, **kw)
+        self.calls.append((input_tokens.cpu(), input_len.cpu(), toks.cpu(), n.cpu()))
+        return toks, n
+
+    def row_of(self, call, content):
+        inp, ln, toks, n = self.calls[call]
+        for i in range(inp.shape[0]):
+            if int(ln[i]) == len(content) and bool((inp[i, : len(content)] == content.cpu()).all()):
+                return toks[i], int(n[i])
+        raise SystemExit("voice: a request's content was not in the recorded batch")
+
+
+def pick_voice_audio(svc, rng) -> list:
+    """Four (reference, source) pairs of 2-3 s whose voice buckets (content,
+    style prompt, FM prompt) agree, found among random candidates."""
+    groups = {}
+    for _ in range(32):
+        pair = (synth_audio(rng, float(rng.choice([2.5, 3.0]))),
+                synth_audio(rng, float(rng.choice([2.0, 2.5, 3.0]))))
+        req = svc._prepare_request(pair[1], pair[0], "voice", 0)
+        groups.setdefault(svc._bucket_of(req), []).append((pair, len(req.content)))
+        best = max(groups.values(), key=len)
+        if len(best) >= 4:
+            break
+    best = max(groups.values(), key=len)
+    if len(best) < 4:
+        raise SystemExit(f"voice: no four candidates share a bucket: {[len(v) for v in groups.values()]}")
+    return [p for p, _ in best[:4]]
+
+
+def voice_launches(max_new: int) -> int:
+    """Quantized-matmul launches of one voice batch: 4 projections per
+    layer in the AR prefill and in each of max_new decode steps, and in each
+    flow-matching step (one estimator pass, no CFG)."""
+    return AR_LAYERS * 4 + max_new * AR_LAYERS * 4 + FM_STEPS * FM_LAYERS * 4
+
+
+def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
+                kernels: dict, solo_check: bool) -> dict:
+    """Four concurrent full-width Vevo-Voice requests in ``dtype``."""
+    from amphion_tpu_torch.pipelines.vevo_pipeline import build_vevo_voice
+    from amphion_tpu_torch.serving import service as service_mod
+
+    t0 = time.perf_counter()
+    pipe = build_vevo_voice(cfg, seed, DEV, compute_dtype=dtype)
+    log(f"voice {dtype}: built full-width Vevo-Voice (AR {AR_HIDDEN}x{AR_LAYERS}, "
+        f"{AR_HEADS} heads, FFN {AR_FFN}, kv_quant {pipe.ar.cfg.kv_quant}; FM "
+        f"{FM_HIDDEN}x{FM_LAYERS}) in {time.perf_counter() - t0:.1f} s")
+    svc = service_mod.VevoService(pipe, max_batch=4, max_wait_ms=3000, len_step=64,
+                                  max_new=max_new, temperature=1.0, top_k=40)
+    rec = ARRecorder(service_mod)
+    qk = kernels["int8_matmul" if dtype == "int8" else "int4_matmul"]
+    try:
+        if audio is None:
+            audio = pick_voice_audio(svc, np.random.default_rng(seed + 11))
+        seeds = [seed * 100 + 50 + i for i in range(len(audio))]
+        reqs = [svc._prepare_request(s_, r, "voice", sd) for (r, s_), sd in zip(audio, seeds)]
+        bucket = svc._bucket_of(reqs[0])
+        log(f"voice {dtype}: bucket {bucket}; content {[len(r.content) for r in reqs]}, "
+            f"style prompt {[len(r.prompt_out) for r in reqs]}, FM prompt "
+            f"{[len(r.fm_prompt_tokens) for r in reqs]} tokens")
+        if solo_check:
+            t0 = time.perf_counter()
+            solo = svc.batcher.submit(reqs[0]).result(timeout=900)
+            torch.cuda.synchronize()
+            log(f"voice {dtype}: request 0 alone (cold) in {time.perf_counter() - t0:.2f} s")
+        for k in kernels.values():
+            k.reset()
+        batches0 = svc.stats()["batches"]
+        torch.cuda.reset_peak_memory_stats()
+        wavs, lats, wall = serve(svc, audio, seeds, "voice")
+        launches = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_batches = svc.stats()["batches"] - batches0
+        log(f"voice {dtype}: launches {launches} over {n_batches} batch(es)")
+        check(f"voice {dtype} one batch", n_batches == 1, f"{n_batches} batch(es)")
+        want = voice_launches(max_new)
+        check(f"voice {dtype} {qk.name} launches", launches[qk.name] == want,
+              f"{launches[qk.name]} (predicted {AR_LAYERS}*4 + {max_new}*{AR_LAYERS}*4 + "
+              f"{FM_STEPS}*{FM_LAYERS}*4 = {want})")
+        other = "int4_matmul" if dtype == "int8" else "int8_matmul"
+        check(f"voice {dtype} mel/flash/other launches",
+              launches["mel"] == 3 * len(audio) and launches["flash_attn_fwd"] == FM_LAYERS * FM_STEPS
+              and launches[other] == 0 and launches["decode_attn_int8"] == 0,
+              f"mel {launches['mel']} (3 per request), flash {launches['flash_attn_fwd']} "
+              f"({FM_LAYERS}x{FM_STEPS}), {other} {launches[other]}, decode_attn 0 "
+              "(the ragged step passes a key mask)")
+        gen = []
+        for i, (r, w) in enumerate(zip(reqs, wavs)):
+            toks, n = rec.row_of(-1, r.content)
+            gen.append(n)
+            want_len = max(n, 1) * HOP
+            check(f"voice {dtype} request {i} waveform",
+                  w.shape == (want_len,) and np.isfinite(w).all() and np.abs(w).max() > 0,
+                  f"{w.shape[0]} samples for {n} generated tokens (want {want_len}), finite")
+        if solo_check:
+            solo_toks, solo_n = rec.row_of(0, reqs[0].content)
+            batch_toks, batch_n = rec.row_of(-1, reqs[0].content)
+            same = int((solo_toks == batch_toks).sum())
+            check(f"voice {dtype} batch invariance: tokens",
+                  same == max_new and solo_n == batch_n,
+                  f"request 0 alone vs in the batch: {same}/{max_new} tokens equal, lengths "
+                  f"{solo_n}/{batch_n}")
+            diff = np.abs(wavs[0] - solo).max() / np.abs(solo).max()
+            check(f"voice {dtype} batch invariance: waveform", diff <= 3e-2,
+                  f"max|diff|/max|solo| {diff:.3g} (tol 3e-2)")
+        audio_out = sum(len(w) for w in wavs) / SR
+        perf = {"requests": len(wavs), "batch_wall_s": wall, "latency_s": lats,
+                "generated_tokens": gen, "audio_s_out": audio_out,
+                "audio_s_per_s": audio_out / wall, "max_memory_allocated_gib": peak,
+                "decode_steps_per_s": max_new / wall}
+        log(f"voice {dtype} perf: " + json.dumps(perf))
+        _, (lc, lo), lp_tok = bucket
+        lt_tok = svc._ladder(max(max(n, 1) for n in gen), max_new)
+        shapes = {"ar_prefill_rows": len(audio) * (lc + 3 + lo),
+                  "fm_rows": len(audio) * (lp_tok + lt_tok)}
+        trace = None
+        if dtype == "int8":
+            t0 = time.perf_counter()
+            trace = profile_rerun(svc, audio, seeds, "voice")
+            log(f"voice {dtype} trace (profiled rerun, {time.perf_counter() - t0:.1f} s with "
+                "the profiler's processing): " + json.dumps(trace))
+    finally:
+        svc.shutdown()
+        service_mod.ar_transformer_generate_ragged = rec.inner
+    return {"pipe": pipe, "audio": audio, "launches": launches, "perf": perf,
+            "shapes": shapes, "trace": trace}
+
+
+def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> dict:
+    """Kernel 8 on a single-utterance int8 run with
+    AMPHION_FUSED_DECODE_ATTN=1, and kernel 5's RMSNorm prologue on an int4
+    decode with AMPHION_FUSED_RMS=1."""
+    from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate
+    from amphion_tpu_torch.serving.service import voice_generators
+
+    pipe = v8["pipe"]
+    ref, src = v8["audio"][0]
+    content = pipe.content_tokens(torch.cat([pipe.audio(ref), pipe.audio(src)]))
+    prompt = pipe.ar_style_prompt(ref)
+    cache_len = len(content) + 3 + prompt.shape[1] + max_new
+    attn_err = decode_attn_check(seed, cache_len)
+    for k in kernels.values():
+        k.reset()
+    os.environ["AMPHION_FUSED_DECODE_ATTN"] = "1"
+    try:
+        g_ar, g_fm = voice_generators(seed, DEV)
+        t0 = time.perf_counter()
+        wav = pipe.inference_ar_and_fm(src, ref, ref, g_ar, g_fm, max_new=max_new,
+                                       temperature=1.0, top_k=40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["AMPHION_FUSED_DECODE_ATTN"]
+    n_attn, n8 = kernels["decode_attn_int8"].launches, kernels["int8_matmul"].launches
+    check("fused decode attention launches", n_attn == AR_LAYERS * max_new,
+          f"{n_attn} (predicted {AR_LAYERS} layers x {max_new} steps), int8_matmul {n8} "
+          f"(predicted {voice_launches(max_new)})")
+    check("fused decode attention output", n8 == voice_launches(max_new)
+          and bool(torch.isfinite(wav).all()) and wav.ndim == 1 and len(wav) % HOP == 0,
+          f"{len(wav)} samples, finite, single utterance in {wall:.2f} s, cache {cache_len}")
+
+    pipe4 = v4["pipe"]
+    steps = 64
+    for k in kernels.values():
+        k.reset()
+    os.environ["AMPHION_FUSED_RMS"] = "1"
+    try:
+        toks, n = ar_transformer_generate(
+            pipe4.ar, content[None], torch.Generator(DEV).manual_seed(seed), max_new=steps,
+            prompt_output_tokens=prompt, compute_dtype="int4")
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["AMPHION_FUSED_RMS"]
+    k4 = kernels["int4_matmul"]
+    pro = k4.tagged.get("rms_prologue", 0)
+    check("fused RMSNorm prologue launches", pro == 2 * AR_LAYERS * (1 + steps)
+          and k4.launches == 4 * AR_LAYERS * (1 + steps) and bool((toks >= 0).all()),
+          f"{pro} prologue launches of {k4.launches} (predicted 2 x {AR_LAYERS} layers x "
+          f"(prefill + {steps} steps) of 4 x ...)")
+    return {"cache_len": cache_len, "prompt_len": cache_len - max_new, "fused_wall_s": wall,
+            "attn_launches": n_attn, "prologue_launches": pro, "attn_err": attn_err}
+
+
+def _row(name, src, line, launches, err, ms, plain, bound, by, lib, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"amphion_tpu_torch/ops/kernels/csrc/{src}",
+            "replaces": f"amphion_tpu/ops/pallas_kernels.py:{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib, **extra}
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / PEAK_BF16, nbytes / HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def quant_timing_phase(v8: dict, v4: dict, fused: dict, errs: dict) -> list:
+    """Kernels 4, 5 and 8 at the voice path's shapes against their bounds,
+    their plain versions and, for kernel 4, ``torch._weight_int8pack_mm``.
+
+    The matmul rows time one decode step's projections (24 layers x qkv, o,
+    gateup, down at M = 4 rows, the pipelines' own weights, 534.7 MB in
+    int8, more than the L2 holds), bound by their bytes; the ``fm_gemm_*``
+    keys time the flow-matching qkv projection at the batch's B * L rows,
+    bound by bf16 operations. Decode attention is timed at the
+    single-utterance cache with valid_len at its middle step."""
+    from amphion_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_int8, decode_attention_int8_ref)
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_ref, unpack_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    dev = torch.device(DEV)
+    g = torch.Generator(dev).manual_seed(2)
+    m = 4
+
+    def projections(ar):
+        for i in range(AR_LAYERS):
+            layer = getattr(ar.decoder, f"layer_{i}")
+            yield from (layer.attn.qkv_proj, layer.attn.o_proj, layer.mlp.gateup_proj,
+                        layer.mlp.down_proj)
+
+    xs = {k: torch.randn((m, k), generator=g, device=dev).bfloat16() for k in (AR_HIDDEN, AR_FFN)}
+
+    def tinygemm(q):
+        """A QDense4 in the layout of ``torch._weight_int4pack_mm`` (values
+        offset by 8, the high nibble first, zero points 0)."""
+        u = unpack_int4(q.kernel_q).to(torch.int32) + 8
+        packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2])
+                                                   .to(torch.uint8), 8)
+        sz = torch.stack([q.scale, torch.zeros_like(q.scale)], dim=-1).bfloat16()
+        return packed, q.group, sz
+
+    def library(name, mods, x_of):
+        """One PyTorch call per projection computing the same product, held
+        to 2e-2 of max|ref| against the plain version on the first one (else
+        reported as missing): ``torch._weight_int8pack_mm`` for kernel 4,
+        ``torch._weight_int4pack_mm`` for kernel 5."""
+        try:
+            if name == "int8_matmul":
+                args = [(q.kernel_q, q.scale.bfloat16()) for q in mods]
+                fn = torch._weight_int8pack_mm
+            else:
+                args = [tinygemm(q) for q in mods]
+                fn = torch._weight_int4pack_mm
+            q0 = mods[0]
+            ref0 = (int8_matmul_ref(x_of(q0), q0.kernel_q, q0.scale) if name == "int8_matmul"
+                    else int4_matmul_ref(x_of(q0), q0.kernel_q, q0.scale, q0.group))
+            err = (fn(x_of(q0), *args[0]).float() - ref0).abs().max().item()
+            if err > 2e-2 * ref0.abs().max().item():
+                log(f"timing {name}: the library call disagrees (max|err| {err:.3g}); not timed")
+                return None
+            return graph_ms(lambda: [fn(x_of(q), *a) for q, a in zip(mods, args)])
+        except (RuntimeError, AttributeError, NotImplementedError) as e:
+            log(f"timing {name}: no library call: {str(e)[:160]}")
+            return None
+
+    rows = []
+    for name, v, mm, ref, line, src in (
+            ("int8_matmul", v8, int8_matmul, int8_matmul_ref, 511, "int8_matmul.cu"),
+            ("int4_matmul", v4, int4_matmul, int4_matmul_ref, 679, "int4_matmul.cu")):
+        mods = list(projections(v["pipe"].ar))
+        extra = (lambda q: (q.group,)) if name == "int4_matmul" else (lambda q: ())
+
+        def call(fn, q, dt=torch.bfloat16):
+            x = xs[q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)]
+            return fn(x, q.kernel_q, q.scale, *extra(q), out_dtype=dt)
+
+        eager_ms = gpu_ms(lambda: [call(mm, q) for q in mods])
+        k_ms = graph_ms(lambda: [call(mm, q) for q in mods])
+        p_ms = graph_ms(lambda: [call(ref, q) for q in mods], iters=5)
+        nbytes = sum(q.kernel_q.numel() + 4 * q.scale.numel() for q in mods)
+        nbytes += sum(2 * m * (q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)
+                               + q.kernel_q.shape[0]) for q in mods)
+        ops = sum(2.0 * m * q.kernel_q.shape[0] * q.kernel_q.shape[1]
+                  * (2 if name == "int4_matmul" else 1) for q in mods)
+        bound, by = _bound(ops, nbytes)
+        lib = library(name, mods, lambda q: xs[q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)])
+        # the flow-matching qkv projection at the batch's rows
+        fm = v["pipe"].fm.diff_estimator.encoder.layer_0.attn.qkv_proj
+        rows_fm = v["shapes"]["fm_rows"]
+        xf = torch.randn((rows_fm, FM_HIDDEN), generator=g, device=dev).bfloat16()
+        fm_ms = gpu_ms(lambda: mm(xf, fm.kernel_q, fm.scale, *extra(fm), out_dtype=torch.bfloat16))
+        fm_plain = gpu_ms(lambda: ref(xf, fm.kernel_q, fm.scale, *extra(fm),
+                                      out_dtype=torch.bfloat16), iters=3)
+        n_fm = fm.kernel_q.shape[0]
+        fm_bound, fm_by = _bound(2.0 * rows_fm * FM_HIDDEN * n_fm,
+                                 fm.kernel_q.numel() + 4 * fm.scale.numel()
+                                 + 2 * rows_fm * (FM_HIDDEN + n_fm))
+        fm_lib = library(name, [fm], lambda q: xf)
+        log(f"timing {name}: one decode step ({len(mods)} projections, M={m}, "
+            f"{nbytes / 1e6:.1f} MB, device time of a CUDA-graph replay) kernel {k_ms} ms "
+            f"({eager_ms} ms launched one by one from Python), plain {p_ms} ms, library {lib} ms, "
+            f"bound {bound} ms ({by}); FM qkv ({rows_fm}, {FM_HIDDEN}) -> {n_fm}: kernel "
+            f"{fm_ms} ms, plain {fm_plain} ms, library {fm_lib} ms, bound {fm_bound} ms ({fm_by})")
+        rows.append(_row(name, src, line, v["launches"][name], errs[name], k_ms, p_ms, bound,
+                         by, lib, fm_gemm_ms=fm_ms, fm_gemm_plain_ms=fm_plain,
+                         fm_gemm_bound_ms=fm_bound, fm_gemm_library_ms=fm_lib,
+                         fm_gemm_rows=rows_fm))
+
+    # decode attention at the single-utterance cache, middle step
+    s_len, d = fused["cache_len"], AR_HIDDEN // AR_HEADS
+    valid = (fused["prompt_len"] + s_len) // 2
+    q = torch.randn((1, AR_HEADS, d), generator=g, device=dev)
+    ck, cv = (torch.randint(-127, 128, (1, AR_HEADS, s_len, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((1, AR_HEADS, s_len), generator=g, device=dev) * 0.02 for _ in range(2))
+    lens = torch.tensor([valid], device=dev, dtype=torch.int32)
+    a_ms = graph_ms(lambda: [decode_attention_int8(q, ck, cv, ks, vs, lens)
+                             for _ in range(AR_LAYERS)]) / AR_LAYERS
+    a_plain = graph_ms(lambda: decode_attention_int8_ref(q, ck, cv, ks, vs, lens))
+    a_bound, a_by = _bound(4.0 * AR_HEADS * valid * d,
+                           AR_HEADS * valid * (2 * d + 8) + 8 * AR_HEADS * d + 4)
+    log(f"timing decode_attn_int8: (1, {AR_HEADS}, S={s_len}, {d}) valid_len {valid}, device "
+        f"time of a CUDA-graph replay, mean of {AR_LAYERS} calls (one step's): kernel "
+        f"{a_ms} ms, plain {a_plain} ms, bound {a_bound} ms ({a_by}), library none "
+        "(no single PyTorch call attends over an int8 cache)")
+    rows.append(_row("decode_attn_int8", "decode_attn_int8.cu", 1202, fused["attn_launches"],
+                     fused["attn_err"], a_ms, a_plain, a_bound, a_by, None))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-new", type=int, default=768,
+                    help="AR decode steps of the voice runs (bins/serve.py's default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -381,8 +855,12 @@ def main() -> int:
     from amphion_tpu_torch.ops import mel as mel_mod
     from amphion_tpu_torch.ops.kernels import _build
     from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from amphion_tpu_torch.ops.kernels.decode_attention import DECODE_ATTN
     from amphion_tpu_torch.ops.kernels.flash_attention import FLASH
+    from amphion_tpu_torch.ops.kernels.int4_matmul import INT4_MM
+    from amphion_tpu_torch.ops.kernels.int8_matmul import INT8_MM
     from amphion_tpu_torch.ops.kernels.mel import MEL
+    from amphion_tpu_torch.utils.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -391,17 +869,27 @@ def main() -> int:
     card = nvidia_smi()
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, nvcc {nvcc!r}, card {card!r}")
+    kernels = {"mel": MEL, "flash_attn_fwd": FLASH, "int8_matmul": INT8_MM,
+               "int4_matmul": INT4_MM, "decode_attn_int8": DECODE_ATTN}
     t0 = time.perf_counter()
-    _build.build_all([MEL, FLASH])
-    log(f"build: mel.cu + flash_attn_fwd.cu in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc each, in parallel)")
+    _build.build_all(list(kernels.values()))
+    log(f"build: {', '.join(k.source.name for k in kernels.values())} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     errs = kernel_phase(mel_mod, flash_mod, args.seed)
+    errs.update(quant_kernel_phase(args.seed))
     reference_phase(args.seed)
+    ar_reference_phase(args.seed)
     sl = slice_phase(args.seed, MEL, FLASH)
-    kernels = timing_phase(mel_mod, flash_mod, sl, errs)
+    rows = timing_phase(mel_mod, flash_mod, sl, errs)
+    cfg = load_config("config/vevo.json")
+    v8 = voice_phase(cfg, args.seed, "int8", None, args.max_new, kernels, solo_check=True)
+    v4 = voice_phase(cfg, args.seed, "int4", v8["audio"], args.max_new, kernels,
+                     solo_check=False)
+    fused = fused_phase(v8, v4, args.seed, args.max_new, kernels)
+    rows += quant_timing_phase(v8, v4, fused, errs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
