@@ -387,18 +387,11 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
         f"library (SDPA) {fl_lib:.5f} ms, bound {fl_bound:.5f} ms at bf16 q/k/v "
         f"({b}, {L}, {h}, {d}), key mask, valid {sl['valid']}")
 
-    def row(name, src, line, launches, err, ms, plain, bound, by, lib):
-        return {"name": name, "route": "cuda",
-                "source": f"amphion_tpu_torch/ops/kernels/csrc/{src}",
-                "replaces": f"amphion_tpu/ops/pallas_kernels.py:{line}",
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": by, "library_ms": lib}
-
     return [
-        row("mel_spectrogram", "mel.cu", 425, sl["launches"]["mel"], errs["mel"], mel_ms,
+        _row("mel_spectrogram", "mel.cu", 425, sl["launches"]["mel"], errs["mel"], mel_ms,
             mel_plain, mel_bound,
             "operations" if mel_flops / PEAK_F32 >= mel_bytes / HBM else "bytes", mel_lib),
-        row("flash_attn_fwd", "flash_attn_fwd.cu", 843, sl["launches"]["flash_attn_fwd"],
+        _row("flash_attn_fwd", "flash_attn_fwd.cu", 843, sl["launches"]["flash_attn_fwd"],
             errs["flash"], fl_ms, fl_plain, fl_bound,
             "operations" if fl_flops / PEAK_BF16 >= fl_bytes / HBM else "bytes", fl_lib),
     ]
@@ -788,6 +781,18 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict, errs: dict) -> list:
             x = xs[q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)]
             return fn(x, q.kernel_q, q.scale, *extra(q), out_dtype=dt)
 
+        per_shape = {}
+        for rows_m in (1, m, 8):
+            xm = {k: torch.randn((rows_m, k), generator=g, device=dev).bfloat16()
+                  for k in (AR_HIDDEN, AR_FFN)}
+            for i, label in enumerate(("qkv", "o", "gateup", "down")):
+                sub = mods[i::4]
+                k_in = sub[0].kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)
+                per_shape[f"M={rows_m} {label}"] = graph_ms(lambda: [
+                    mm(xm[k_in], q.kernel_q, q.scale, *extra(q), out_dtype=torch.bfloat16)
+                    for q in sub]) / len(sub) * 1e3
+        log(f"timing {name}: us per call by projection and rows (CUDA graph, "
+            f"{len(mods) // 4} layers' weights each): " + json.dumps(per_shape))
         eager_ms = gpu_ms(lambda: [call(mm, q) for q in mods])
         k_ms = graph_ms(lambda: [call(mm, q) for q in mods])
         p_ms = graph_ms(lambda: [call(ref, q) for q in mods], iters=5)

@@ -94,7 +94,7 @@ def test_int4_group_matches_jax():
         assert int4_group(k) == jax_int4_group(k)
 
 
-@pytest.mark.parametrize("m", [4, 37])
+@pytest.mark.parametrize("m", [4])
 def test_int8_matmul_plain_matches_pallas(m):
     rng = np.random.default_rng(2 + m)
     x = rng.standard_normal((m, 128)).astype(np.float32)
@@ -105,7 +105,7 @@ def test_int8_matmul_plain_matches_pallas(m):
     _close(out.numpy(), ref)
 
 
-@pytest.mark.parametrize("m,rms", [(4, False), (4, True), (37, True)])
+@pytest.mark.parametrize("m,rms", [(4, False), (37, True)])
 def test_int4_matmul_plain_matches_pallas(m, rms):
     """Two groups per row; with ``rms_scale`` the RMSNorm prologue
     (`_int4_matmul_rms_kernel`, whole K in one program)."""
