@@ -29,8 +29,7 @@ from amphion_tpu_torch.modules.llama import (
     LlamaConfig,
     LlamaDecoder,
     cast_params,
-    quantize_llama_params,
-    validate_quantized_tree,
+    load_quantized,
 )
 from amphion_tpu_torch.ops.ragged import pack_segments_right, right_pack_valid
 from amphion_tpu_torch.ops.sampling import sample_logits
@@ -170,17 +169,9 @@ def prepare_for_decode(model: ARTransformer, compute_dtype: str) -> ARTransforme
         return cast_params(model, DECODE_DTYPES[compute_dtype])
     qcfg = dataclasses.replace(model.cfg, decode_quant=compute_dtype,
                                kv_quant=os.environ.get("AMPHION_KV_QUANT", "1") != "0")
-    state = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
-             for k, v in model.state_dict().items()}
-    dec = {k[len("decoder."):]: v for k, v in state.items() if k.startswith("decoder.")}
-    qdec = quantize_llama_params(dec, compute_dtype, cfg=qcfg.llama())
-    validate_quantized_tree(qdec, qcfg.llama())
-    state = {k: v for k, v in state.items() if not k.startswith("decoder.")}
-    state.update({f"decoder.{k}": v for k, v in qdec.items()})
     with torch.device(model.device):
-        qmodel = cast_params(ARTransformer(qcfg), torch.bfloat16)
-    qmodel.load_state_dict(state)
-    return qmodel.eval()
+        qmodel = ARTransformer(qcfg)
+    return load_quantized(qmodel, model, qcfg.llama())
 
 
 def _check(model: ARTransformer, compute_dtype: str) -> torch.dtype:

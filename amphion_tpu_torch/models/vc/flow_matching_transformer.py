@@ -23,9 +23,8 @@ from amphion_tpu_torch.modules.llama import (
     LlamaConfig,
     LlamaEncoder,
     cast_params,
-    quantize_llama_params,
+    load_quantized,
     sinusoidal_step_embedding,
-    validate_quantized_tree,
 )
 from amphion_tpu_torch.ops.ragged import masked_std, pack_segments, unpack_target
 
@@ -130,14 +129,9 @@ def prepare_for_inference(model: FlowMatchingTransformer,
     if compute_dtype in ("float32", "bfloat16"):
         return cast_params(model, DTYPES[compute_dtype])
     qcfg = dataclasses.replace(model.cfg, decode_quant=compute_dtype)
-    state = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
-             for k, v in model.state_dict().items()}
-    state = quantize_llama_params(state, compute_dtype, cfg=qcfg.llama())
-    validate_quantized_tree(state, qcfg.llama())
     with torch.device(next(model.parameters()).device):
-        qmodel = cast_params(FlowMatchingTransformer(qcfg), torch.bfloat16)
-    qmodel.load_state_dict(state)
-    return qmodel.eval()
+        qmodel = FlowMatchingTransformer(qcfg)
+    return load_quantized(qmodel, model, qcfg.llama())
 
 
 def _check(model: FlowMatchingTransformer, solver: str, compute_dtype: str):

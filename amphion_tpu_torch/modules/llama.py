@@ -261,6 +261,20 @@ def quantize_llama_params(state: dict, quant: str = "int8", fuse: bool = True,
     return out
 
 
+@torch.no_grad()
+def load_quantized(qmodel: nn.Module, model: nn.Module, cfg: LlamaConfig) -> nn.Module:
+    """Fill ``qmodel`` (built with quantized projections per ``cfg``) from the
+    float ``model``: every weight cast to bf16, as the JAX decode prep casts,
+    and every projection quantized from it; ``qmodel``'s parameters become
+    bf16 and its scales stay float32. Returns ``qmodel`` in eval mode."""
+    state = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+             for k, v in model.state_dict().items()}
+    state = quantize_llama_params(state, cfg.decode_quant, cfg=cfg)
+    validate_quantized_tree(state, cfg)
+    cast_params(qmodel, torch.bfloat16).load_state_dict(state)
+    return qmodel.eval()
+
+
 def validate_quantized_tree(state: dict, cfg: LlamaConfig) -> None:
     """Raise when a quantized state's fused/unfused projection layout
     disagrees with ``cfg.fused_quant_proj`` (it would otherwise surface as
