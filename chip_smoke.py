@@ -513,15 +513,23 @@ class ARRecorder:
 
     def __call__(self, model, input_tokens, input_len, *a, **kw):
         toks, n = self.inner(model, input_tokens, input_len, *a, **kw)
-        self.calls.append((input_tokens.cpu(), input_len.cpu(), toks.cpu(), n.cpu()))
+        self.calls.append((input_tokens.cpu(), input_len.cpu(),
+                           kw["prompt_output_tokens"].cpu(), kw["prompt_output_len"].cpu(),
+                           toks.cpu(), n.cpu()))
         return toks, n
 
-    def row_of(self, call, content):
-        inp, ln, toks, n = self.calls[call]
+    def row_of(self, call, req):
+        """(tokens, length) of the row that holds ``req``'s content and style
+        prompt in recorded call ``call``."""
+        inp, ln, pout, plen, toks, n = self.calls[call]
+
+        def same(buf, lens, i, want):
+            return int(lens[i]) == len(want) and bool((buf[i, : len(want)] == want.cpu()).all())
+
         for i in range(inp.shape[0]):
-            if int(ln[i]) == len(content) and bool((inp[i, : len(content)] == content.cpu()).all()):
+            if same(inp, ln, i, req.content) and same(pout, plen, i, req.prompt_out):
                 return toks[i], int(n[i])
-        raise SystemExit("voice: a request's content was not in the recorded batch")
+        raise SystemExit("voice: a request was not in the recorded batch")
 
 
 def pick_voice_audio(svc, rng) -> list:
@@ -601,15 +609,15 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
               "(the ragged step passes a key mask)")
         gen = []
         for i, (r, w) in enumerate(zip(reqs, wavs)):
-            toks, n = rec.row_of(-1, r.content)
+            toks, n = rec.row_of(-1, r)
             gen.append(n)
             want_len = max(n, 1) * HOP
             check(f"voice {dtype} request {i} waveform",
                   w.shape == (want_len,) and np.isfinite(w).all() and np.abs(w).max() > 0,
                   f"{w.shape[0]} samples for {n} generated tokens (want {want_len}), finite")
         if solo_check:
-            solo_toks, solo_n = rec.row_of(0, reqs[0].content)
-            batch_toks, batch_n = rec.row_of(-1, reqs[0].content)
+            solo_toks, solo_n = rec.row_of(0, reqs[0])
+            batch_toks, batch_n = rec.row_of(-1, reqs[0])
             same = int((solo_toks == batch_toks).sum())
             check(f"voice {dtype} batch invariance: tokens",
                   same == max_new and solo_n == batch_n,
