@@ -52,11 +52,10 @@ class LlamaConfig:
     max_position: int = 4096
     adaptive: bool = False  # adaptive RMSNorm on a conditioning vector
     # "none" | "int8" | "int4": weight-only quantized projections (QDense,
-    # QDense4); build the matching state with `quantize_llama_params`
+    # QDense4), q/k/v fused into one qkv_proj and gate/up into one
+    # gateup_proj (4 matmuls per layer instead of 7); build the matching
+    # state with `quantize_llama_params`
     decode_quant: str = "none"
-    # quantized q/k/v fuse into one qkv_proj and gate/up into one
-    # gateup_proj (4 matmuls per layer instead of 7)
-    fused_quant_proj: bool = True
     kv_quant: bool = False  # int8 head-major KV cache in `LlamaDecoder`
 
     def __post_init__(self):
@@ -213,21 +212,16 @@ PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "d
 FUSED = {"qkv_proj": ("q_proj", "k_proj", "v_proj"), "gateup_proj": ("gate_proj", "up_proj")}
 
 
-def quantize_llama_params(state: dict, quant: str = "int8", fuse: bool = True,
-                          cfg: LlamaConfig | None = None) -> dict:
-    """Float state dict → quantized-projection state dict: every projection
-    ``<scope>.{q,k,v,o,gate,up,down}_proj.weight`` (N, K) becomes
-    ``kernel_q``/``scale`` buffers (`quantize_weight_int8`, or
-    `quantize_weight_int4` packed along K with `int4_group`); other entries
-    pass through. With ``fuse`` (``cfg.fused_quant_proj`` when ``cfg`` is
-    given) q/k/v concatenate along N into ``qkv_proj`` and gate/up into
-    ``gateup_proj`` before quantization, exact since the scales are per
-    output column. Quantizes in the weights' own dtype, as JAX does: pass a
-    bf16 state for the decode path."""
+def quantize_llama_params(state: dict, quant: str = "int8") -> dict:
+    """Float state dict → quantized-projection state dict: q/k/v concatenate
+    along N into ``<scope>.qkv_proj`` and gate/up into ``gateup_proj``
+    (exact, since the scales are per output column), then every projection
+    ``(N, K)`` weight becomes ``kernel_q``/``scale`` buffers
+    (`quantize_weight_int8`, or `quantize_weight_int4` packed along K with
+    `int4_group`); other entries pass through. Quantizes in the weights' own
+    dtype, as JAX does: pass a bf16 state for the decode path."""
     if quant not in ("int8", "int4"):
         raise ValueError(f"quantize_llama_params: quant {quant!r} is not int8/int4")
-    if cfg is not None:
-        fuse = cfg.fused_quant_proj
 
     def qdict(prefix, w):
         if quant == "int4":
@@ -249,15 +243,20 @@ def quantize_llama_params(state: dict, quant: str = "int8", fuse: bool = True,
             out[key] = val
             continue
         scope, name = hit
-        fused = next((f for f, names in FUSED.items() if name in names), None)
         dot = f"{scope}." if scope else ""
-        if fuse and fused and all(f"{dot}{n}.weight" in state for n in FUSED[fused]):
-            if (scope, fused) not in done:
-                done.add((scope, fused))
-                w = torch.cat([state[f"{dot}{n}.weight"] for n in FUSED[fused]], dim=0)
-                out.update(qdict(f"{dot}{fused}", w))
+        fused = next((f for f, names in FUSED.items() if name in names), None)
+        if fused is None:
+            out.update(qdict(f"{dot}{name}", val))
             continue
-        out.update(qdict(f"{dot}{name}", val))
+        if (scope, fused) in done:
+            continue
+        missing = [n for n in FUSED[fused] if f"{dot}{n}.weight" not in state]
+        if missing:
+            raise ValueError(f"quantize_llama_params: {dot}{fused} needs "
+                             f"{FUSED[fused]}, missing {missing}")
+        done.add((scope, fused))
+        w = torch.cat([state[f"{dot}{n}.weight"] for n in FUSED[fused]], dim=0)
+        out.update(qdict(f"{dot}{fused}", w))
     return out
 
 
@@ -269,32 +268,27 @@ def load_quantized(qmodel: nn.Module, model: nn.Module, cfg: LlamaConfig) -> nn.
     bf16 and its scales stay float32. Returns ``qmodel`` in eval mode."""
     state = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
              for k, v in model.state_dict().items()}
-    state = quantize_llama_params(state, cfg.decode_quant, cfg=cfg)
+    state = quantize_llama_params(state, cfg.decode_quant)
     validate_quantized_tree(state, cfg)
     cast_params(qmodel, torch.bfloat16).load_state_dict(state)
     return qmodel.eval()
 
 
 def validate_quantized_tree(state: dict, cfg: LlamaConfig) -> None:
-    """Raise when a quantized state's fused/unfused projection layout
-    disagrees with ``cfg.fused_quant_proj`` (it would otherwise surface as
-    missing keys at load time). No-op for unquantized configs."""
+    """Raise when a quantized state holds unfused projections (separate
+    q/k/v or gate/up ``kernel_q``, as JAX's ``fuse=False`` writes them): the
+    port's quantized layout is the fused one, and the mismatch would
+    otherwise surface as missing keys at load time. No-op for unquantized
+    configs."""
     if cfg.decode_quant == "none":
         return
-    keys = list(state)
-    found_fused = any(f".{f}." in f".{k}" for k in keys for f in FUSED)
-    found_unfused = any(k.endswith("q_proj.kernel_q") and not k.endswith("qkv_proj.kernel_q")
-                        for k in keys)
-    if cfg.fused_quant_proj and found_unfused and not found_fused:
+    unfused = sorted({n for k in state for names in FUSED.values() for n in names
+                      if k == f"{n}.kernel_q" or k.endswith(f".{n}.kernel_q")})
+    if unfused:
         raise ValueError(
-            "quantized state is UNFUSED (separate q/k/v projections) but "
-            "cfg.fused_quant_proj=True expects fused qkv_proj/gateup_proj: "
-            "re-quantize with quantize_llama_params(..., fuse=True)")
-    if not cfg.fused_quant_proj and found_fused:
-        raise ValueError(
-            "quantized state is FUSED (qkv_proj/gateup_proj) but "
-            "cfg.fused_quant_proj=False expects separate q/k/v: re-quantize "
-            "with fuse=False")
+            f"quantized state is UNFUSED (separate {unfused} projections); the "
+            "port expects fused qkv_proj/gateup_proj: re-quantize with "
+            "quantize_llama_params")
 
 
 # -- attention, MLP, blocks -------------------------------------------------------
@@ -304,7 +298,9 @@ def _q8(x: torch.Tensor):
     """(B, T, H, D) float32 → head-major int8 (B, H, T, D) and its
     per-(position, head) scales (B, H, T): amax/127, floored at 1e-8."""
     x = x.transpose(1, 2)
-    s = torch.clamp(x.abs().amax(dim=-1) / 127.0, min=1e-8)
+    # jitted JAX computes ``amax / 127.0`` as a multiply by float32(1/127)
+    s = torch.clamp(x.abs().amax(dim=-1) * torch.tensor(1.0 / 127.0, dtype=torch.float32),
+                    min=1e-8)
     return torch.round(x / s[..., None]).to(torch.int8), s.float()
 
 
@@ -314,7 +310,7 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         h = cfg.hidden_size
         nq, nkv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-        if cfg.decode_quant != "none" and cfg.fused_quant_proj:
+        if cfg.decode_quant != "none":
             self.qkv_proj = _proj(cfg, h, nq + 2 * nkv)
         else:
             self.q_proj = _proj(cfg, h, nq)
@@ -412,7 +408,7 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
-        if cfg.decode_quant != "none" and cfg.fused_quant_proj:
+        if cfg.decode_quant != "none":
             self.gateup_proj = _proj(cfg, h, 2 * f)
         else:
             self.gate_proj = _proj(cfg, h, f)
@@ -452,7 +448,7 @@ class LlamaBlock(nn.Module):
         c = self.cfg
         # fused-RMSNorm decode: the int4 qkv and gateup matmuls normalise x
         # in their prologue (switch read as the JAX block reads it)
-        fuse_rms = (c.decode_quant == "int4" and c.fused_quant_proj and not c.adaptive
+        fuse_rms = (c.decode_quant == "int4" and not c.adaptive
                     and os.environ.get("AMPHION_FUSED_RMS") == "1")
         h, in_scale = self.input_norm(x, passthrough=fuse_rms), None
         if fuse_rms:

@@ -169,10 +169,11 @@ class VevoService:
             lc, lo = shape
             gens = [voice_generators(r.seed, dev) for r in reqs]
             # the decode always runs max_batch rows (the first request
-            # repeated in the free ones, its rows discarded): every kernel
-            # then sees the same shapes whatever the batch holds, so a
-            # request's tokens do not depend on its company (PyTorch picks
-            # its reduction and GEMM algorithms by shape)
+            # repeated in the free ones, its rows discarded): every op then
+            # sees the same shapes whatever the batch holds, so a request's
+            # tokens do not depend on its company (on the card the bf16
+            # lm_head product and the RMSNorm mean change their last bits
+            # with the row count)
             pad = [reqs[0]] * (self.batcher.max_batch - len(reqs))
             rows = reqs + pad
             ar_gens = [g[0] for g in gens] + [voice_generators(r.seed, dev)[0] for r in pad]

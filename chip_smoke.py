@@ -15,8 +15,13 @@ random weights from ``--seed``:
   fused RMSNorm prologue (``AMPHION_FUSED_RMS=1``);
 
 checking outputs, launch counts against counts worked out beforehand and
-batch invariance, then times each kernel at the shapes the paths gave it
-and profiles one voice batch. Run from the repository root:
+batch invariance, and holding the int8/int4 matmul kernels against their
+plain versions on the inputs the voice paths gave them (decode, AR prefill
+and flow-matching rows, with and without the RMSNorm prologue). It then
+measures what padding each voice decode to ``max_batch`` rows costs and
+which PyTorch operations make the padding necessary, times each kernel at
+the shapes the paths gave it and profiles one voice batch. Run from the
+repository root:
 
     python3 chip_smoke.py [--seed 0] [--max-new 768]
 
@@ -36,6 +41,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 # the smoke drives one card: the first visible one, whatever the host exposes
 os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -43,6 +49,8 @@ os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_flatten, tree_unflatten  # noqa: E402
 
 SR, HOP, N_FFT = 24000, 120, 1024
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM data sheet
@@ -294,6 +302,18 @@ KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("mel", "mel_kernel"),
 LIBRARY_GEMM = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 
 
+def device_us_by_name(prof) -> tuple[dict, int]:
+    """Device microseconds by kernel name from a finished torch.profiler
+    run, and the number of device records."""
+    by_name, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
+        n += 1
+    return by_name, n
+
+
 def profile_rerun(svc, audio, seeds, mode: str = "timbre") -> dict:
     """A rerun of the batch under torch.profiler (device activity only):
     wall, device-busy share and device time by group (the port's kernels by
@@ -308,13 +328,7 @@ def profile_rerun(svc, audio, seeds, mode: str = "timbre") -> dict:
     t0 = time.perf_counter()
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups.update(gemm=0.0, other=0.0)
-    by_name, n_kernels = {}, 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        name, us = e.name(), e.duration_ns() / 1e3
-        by_name[name] = by_name.get(name, 0.0) + us
-        n_kernels += 1
+    by_name, n_kernels = device_us_by_name(prof)
     for name, us in by_name.items():
         group = next((g for g, pat in KERNEL_GROUPS if pat in name), None)
         if group is None:
@@ -404,13 +418,17 @@ AR_LAYERS, AR_HIDDEN, AR_HEADS, AR_FFN = 24, 1280, 20, 4096  # config/vevo.json,
 FM_LAYERS, FM_HIDDEN, FM_STEPS = 16, 1024, 32
 AR_PROJ = [(AR_HIDDEN, 3 * AR_HIDDEN), (AR_HIDDEN, AR_HIDDEN), (AR_HIDDEN, 2 * AR_FFN),
            (AR_FFN, AR_HIDDEN)]  # (K, N) of qkv, o, gateup, down
-FM_QKV = (6144, FM_HIDDEN, 3 * FM_HIDDEN)  # (M, K, N): B * L rows, e.g. 4 * 1536
+FM_QKV = (6144, FM_HIDDEN, 3 * FM_HIDDEN)  # (M, K, N): 4 * 1536 rows, a timbre-sized FM batch
+DECODE_ROWS = (1, 2, 4, 8, 16)  # decode batch rows of the padding phase
 
 
-def quant_kernel_phase(seed: int) -> dict:
+def quant_kernel_phase(seed: int) -> None:
     """Kernels 4 and 5 (with and without the RMSNorm prologue) against
-    their plain versions at the voice path's shapes. Both matmul paths sum
-    bf16 products in float32 in another order than the plain version:
+    their plain versions on random data, before any model is built: at the
+    decode shapes (M = 4) and at a 6144-row FM projection. The voice phases
+    then check both kernels on the main path's own activations and weights
+    (`path_quant_check`). Tolerances there and here: both matmul paths sum
+    bf16 products in float32 in another order than the plain version, so
     float32 output within 1e-4 of max|ref|; with the prologue the bf16
     rounding of the normalised x may flip, so within 2e-2 of max|ref| and a
     relative Frobenius error of 1e-3."""
@@ -421,7 +439,6 @@ def quant_kernel_phase(seed: int) -> dict:
 
     dev = torch.device(DEV)
     g = torch.Generator(dev).manual_seed(seed + 7)
-    errs = {"int8_matmul": 0.0, "int4_matmul": 0.0}
     shapes = [(4, k, n) for k, n in AR_PROJ] + [FM_QKV]
     for m, k, n in shapes:
         x = torch.randn((m, k), generator=g, device=dev).bfloat16()
@@ -429,8 +446,6 @@ def quant_kernel_phase(seed: int) -> dict:
         w_q, sc = quantize_weight_int8(w)
         out, ref = int8_matmul(x, w_q, sc), int8_matmul_ref(x, w_q, sc)
         err = (out - ref).abs().max().item()
-        if m == 4:
-            errs["int8_matmul"] = max(errs["int8_matmul"], err)
         check(f"int8_matmul M={m} K={k} N={n}", err <= 1e-4 * ref.abs().max().item(),
               f"max|err| {err:.3g}, max|ref| {ref.abs().max().item():.3g} (tol 1e-4 rel)")
         w_int, sc4 = quantize_weight_int4(w, 128)
@@ -441,17 +456,92 @@ def quant_kernel_phase(seed: int) -> dict:
             ref = int4_matmul_ref(x, w_p, sc4, 128, rms, 1e-6)
             err = (out - ref).abs().max().item()
             scale = ref.abs().max().item()
-            if rms is None:
-                ok, detail = err <= 1e-4 * scale, f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})"
-                if m == 4:
-                    errs["int4_matmul"] = max(errs["int4_matmul"], err)
-            else:
-                fro = ((out - ref).norm() / ref.norm()).item()
-                ok = err <= 2e-2 * scale and fro <= 1e-3
-                detail = (f"max|err| {err:.3g} (tol 2e-2 of {scale:.3g}), rel Frobenius "
-                          f"{fro:.3g} (tol 1e-3)")
+            ok, detail = quant_close(out, ref, rms is not None)
             check(f"int4_matmul M={m} K={k} N={n} rms_prologue={rms is not None}", ok, detail)
-    return errs
+
+
+def quant_close(out, ref, prologue: bool) -> tuple[bool, str]:
+    """Kernel 4/5 float32 output against the plain version's (tolerances
+    in `quant_kernel_phase`)."""
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    if not prologue:
+        return err <= 1e-4 * scale, f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})"
+    fro = ((out - ref).norm() / ref.norm()).item()
+    return (err <= 2e-2 * scale and fro <= 1e-3,
+            f"max|err| {err:.3g} (tol 2e-2 of {scale:.3g}), rel Frobenius {fro:.3g} (tol 1e-3)")
+
+
+class ProjRecorder:
+    """Forward pre-hooks on the quantized projections (qkv, o, gateup,
+    down) of the first and last layers of the AR decoder and, unless
+    ``ar_only``, of the flow-matching estimator: each keeps its first input
+    (and RMSNorm gain, when the prologue runs) at every row count it sees,
+    so that the kernels can be held against their plain versions on the
+    activations and weights the main path gave them. Copying a few inputs
+    launches no kernel of the port."""
+
+    def __init__(self, pipe, ar_only: bool = False):
+        self.seen, self.hooks = {}, []
+        stacks = [("ar", pipe.ar.decoder, AR_LAYERS)]
+        if not ar_only:
+            stacks.append(("fm", pipe.fm.diff_estimator.encoder, FM_LAYERS))
+        for tag, stack, n in stacks:
+            for i in (0, n - 1):
+                layer = getattr(stack, f"layer_{i}")
+                for label, mod in (("qkv", layer.attn.qkv_proj), ("o", layer.attn.o_proj),
+                                   ("gateup", layer.mlp.gateup_proj),
+                                   ("down", layer.mlp.down_proj)):
+                    self.hooks.append(mod.register_forward_pre_hook(
+                        self._hook(f"{tag} layer_{i} {label}")))
+
+    def _hook(self, name):
+        def hook(mod, args):
+            x = args[0].reshape(-1, args[0].shape[-1])
+            rms = args[1] if len(args) > 1 else None
+            key = (name, x.shape[0], rms is not None)
+            if key not in self.seen:
+                self.seen[key] = (mod, x.clone(), None if rms is None else rms.clone())
+        return hook
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+def path_quant_check(label: str, rec: ProjRecorder, int4: bool) -> float:
+    """Kernel 4 (or 5) against its plain version on every recorded input
+    of the main path, at the output dtype the path asked for: float32 within
+    `quant_close`, and the bf16 output bit-equal to the float32 one rounded.
+    At the decode rows (M <= 8) it also reports whether row 0 of the GEMV's
+    output keeps its bits when row 0 is sent alone. Returns the largest
+    float32 error."""
+    from amphion_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_ref
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    worst, row_inv = 0.0, []
+    for (name, m, pro), (mod, x, rms) in sorted(rec.seen.items(), key=lambda kv: kv[0]):
+        if int4:
+            def run(fn, xx, dt):
+                return fn(xx, mod.kernel_q, mod.scale, mod.group, rms, 1e-6, out_dtype=dt)
+            kernel, plain = int4_matmul, int4_matmul_ref
+        else:
+            def run(fn, xx, dt):
+                return fn(xx, mod.kernel_q, mod.scale, out_dtype=dt)
+            kernel, plain = int8_matmul, int8_matmul_ref
+        out, ref = run(kernel, x, torch.float32), run(plain, x, torch.float32)
+        worst = max(worst, (out - ref).abs().max().item())
+        ok, detail = quant_close(out, ref, pro)
+        out_bf = run(kernel, x, x.dtype)
+        same = bool(torch.equal(out_bf, out.to(x.dtype)))
+        n, k = mod.kernel_q.shape[0], x.shape[1]
+        check(f"{label} path {name} M={m} K={k} N={n} rms_prologue={pro}", ok and same,
+              f"{detail}; {x.dtype} output equals the float32 one rounded: {same}")
+        if m <= 8:
+            row_inv.append(bool(torch.equal(run(kernel, x[:1], x.dtype)[0], out_bf[0])))
+    if row_inv:
+        log(f"  {label} GEMV row 0 alone vs at the decode rows: bit-equal in "
+            f"{sum(row_inv)}/{len(row_inv)} projections")
+    return worst
 
 
 def decode_attn_check(seed: int, cache_len: int) -> float:
@@ -586,6 +676,7 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
             solo = svc.batcher.submit(reqs[0]).result(timeout=900)
             torch.cuda.synchronize()
             log(f"voice {dtype}: request 0 alone (cold) in {time.perf_counter() - t0:.2f} s")
+        prec = ProjRecorder(pipe)
         for k in kernels.values():
             k.reset()
         batches0 = svc.stats()["batches"]
@@ -593,6 +684,7 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
         wavs, lats, wall = serve(svc, audio, seeds, "voice")
         launches = {name: k.launches for name, k in kernels.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
+        prec.remove()
         n_batches = svc.stats()["batches"] - batches0
         log(f"voice {dtype}: launches {launches} over {n_batches} batch(es)")
         check(f"voice {dtype} one batch", n_batches == 1, f"{n_batches} batch(es)")
@@ -634,8 +726,15 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
         log(f"voice {dtype} perf: " + json.dumps(perf))
         _, (lc, lo), lp_tok = bucket
         lt_tok = svc._ladder(max(max(n, 1) for n in gen), max_new)
-        shapes = {"ar_prefill_rows": len(audio) * (lc + 3 + lo),
+        shapes = {"ar_prefill_rows": svc.batcher.max_batch * (lc + 3 + lo),
                   "fm_rows": len(audio) * (lp_tok + lt_tok)}
+        rows_seen = sorted({m for _, m, _ in prec.seen})
+        check(f"voice {dtype} recorded projection rows", rows_seen == sorted(
+              {4, shapes["ar_prefill_rows"], shapes["fm_rows"]}),
+              f"{rows_seen} (decode 4, AR prefill {shapes['ar_prefill_rows']}, FM "
+              f"{shapes['fm_rows']})")
+        path_err = path_quant_check(f"voice {dtype}", prec, dtype == "int4")
+        del prec
         trace = None
         if dtype == "int8":
             t0 = time.perf_counter()
@@ -646,14 +745,15 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
         svc.shutdown()
         service_mod.ar_transformer_generate_ragged = rec.inner
     return {"pipe": pipe, "audio": audio, "launches": launches, "perf": perf,
-            "shapes": shapes, "trace": trace}
+            "shapes": shapes, "trace": trace, "path_err": path_err, "seeds": seeds,
+            "ar_inputs": rec.calls[-1][:4]}
 
 
 def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> dict:
     """Kernel 8 on a single-utterance int8 run with
     AMPHION_FUSED_DECODE_ATTN=1, and kernel 5's RMSNorm prologue on an int4
     decode with AMPHION_FUSED_RMS=1."""
-    from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate
+    from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
     from amphion_tpu_torch.serving.service import voice_generators
 
     pipe = v8["pipe"]
@@ -682,26 +782,139 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
           and bool(torch.isfinite(wav).all()) and wav.ndim == 1 and len(wav) % HOP == 0,
           f"{len(wav)} samples, finite, single utterance in {wall:.2f} s, cache {cache_len}")
 
+    # the int4 voice batch's own AR decode (its four requests' buffers),
+    # 64 steps, with the RMSNorm in the qkv and gateup matmuls' prologue
     pipe4 = v4["pipe"]
     steps = 64
+    inp, ln, pout, plen = (t.to(DEV) for t in v4["ar_inputs"])
+    gens = [voice_generators(sd, DEV)[0] for sd in v4["seeds"]]
+    prec = ProjRecorder(pipe4, ar_only=True)
     for k in kernels.values():
         k.reset()
     os.environ["AMPHION_FUSED_RMS"] = "1"
     try:
-        toks, n = ar_transformer_generate(
-            pipe4.ar, content[None], torch.Generator(DEV).manual_seed(seed), max_new=steps,
-            prompt_output_tokens=prompt, compute_dtype="int4")
+        toks, n = ar_transformer_generate_ragged(
+            pipe4.ar, inp, ln, gens, max_new=steps, temperature=1.0, top_k=40,
+            prompt_output_tokens=pout, prompt_output_len=plen, compute_dtype="int4")
         torch.cuda.synchronize()
     finally:
         del os.environ["AMPHION_FUSED_RMS"]
+        prec.remove()
     k4 = kernels["int4_matmul"]
     pro = k4.tagged.get("rms_prologue", 0)
     check("fused RMSNorm prologue launches", pro == 2 * AR_LAYERS * (1 + steps)
           and k4.launches == 4 * AR_LAYERS * (1 + steps) and bool((toks >= 0).all()),
           f"{pro} prologue launches of {k4.launches} (predicted 2 x {AR_LAYERS} layers x "
           f"(prefill + {steps} steps) of 4 x ...)")
+    pro_rows = sorted({m for _, m, p in prec.seen if p})
+    check("fused RMSNorm prologue rows", pro_rows == [len(gens), v4["shapes"]["ar_prefill_rows"]],
+          f"{pro_rows} (decode {len(gens)}, the voice batch's AR prefill "
+          f"{v4['shapes']['ar_prefill_rows']})")
+    pro_err = path_quant_check("int4 fused RMSNorm", prec, True)
     return {"cache_len": cache_len, "prompt_len": cache_len - max_new, "fused_wall_s": wall,
-            "attn_launches": n_attn, "prologue_launches": pro, "attn_err": attn_err}
+            "attn_launches": n_attn, "prologue_launches": pro, "attn_err": attn_err,
+            "prologue_err": pro_err}
+
+
+class RowAloneCheck(TorchDispatchMode):
+    """Runs each PyTorch operation of a batch of ``b`` rows a second time on
+    row 0 alone (every input whose first dimension is ``b`` cut to its first
+    row) and compares row 0 of the two results bit for bit, counting the
+    operations whose bits differ by operation and call site. Skips
+    operations that write to their inputs or draw random numbers, and those
+    whose result or inputs do not lead with the batch. The port's own CUDA
+    kernels run outside PyTorch's dispatcher and are not seen here."""
+
+    def __init__(self, b: int):
+        super().__init__()
+        self.b, self.ops, self.checked, self.differ = b, 0, 0, {}
+
+    def _site(self) -> str:
+        for f in reversed(traceback.extract_stack()):
+            if "amphion_tpu_torch" in f.filename:
+                return f"{f.filename[f.filename.rindex('amphion_tpu_torch'):]}:{f.lineno}"
+        return "?"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops += 1
+        if (func._schema.is_mutable or torch.Tag.nondeterministic_seeded in func.tags
+                or not isinstance(out, torch.Tensor) or out.dim() == 0
+                or out.shape[0] != self.b):
+            return out
+        flat, spec = tree_flatten((args, kwargs))
+        cut = [isinstance(a, torch.Tensor) and a.dim() > 0 and a.shape[0] == self.b
+               for a in flat]
+        if not any(cut):
+            return out
+        a1, k1 = tree_unflatten([a[:1] if c else a for a, c in zip(flat, cut)], spec)
+        try:
+            one = func(*a1, **k1)
+        except (RuntimeError, IndexError, ValueError, TypeError):
+            return out  # an operation whose arguments name the batch size
+        if not isinstance(one, torch.Tensor) or one.shape != (1, *out.shape[1:]):
+            return out
+        self.checked += 1
+        if not torch.equal(one.contiguous().view(torch.uint8),
+                           out[:1].contiguous().view(torch.uint8)):
+            key = f"{func} at {self._site()}"
+            self.differ[key] = self.differ.get(key, 0) + 1
+        return out
+
+
+def padding_phase(v8: dict) -> dict:
+    """What padding every voice decode to the service's ``max_batch`` rows
+    costs, and why it is there. Decodes the int8 voice batch's requests
+    (row 0 is request 0, rows past the fourth repeat it, as the service
+    pads) at each row count of DECODE_ROWS: wall and device time per decode
+    step, each the difference of a 72-step and an 8-step decode (the
+    prefill cancels), the device time from a profiled rerun; and how many
+    of row 0's tokens agree between consecutive row counts. Then one
+    prefill and two steps at 4 rows under `RowAloneCheck`: the PyTorch
+    operations whose row 0 changes its bits when row 0 runs alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
+    from amphion_tpu_torch.serving.service import voice_generators
+
+    ar, inputs, seeds = v8["pipe"].ar, v8["ar_inputs"], v8["seeds"]
+
+    def decode(rows: int, steps: int):
+        idx = [i if i < len(seeds) else 0 for i in range(rows)]
+        inp, ln, pout, plen = (t[idx].to(DEV) for t in inputs)
+        gens = [voice_generators(seeds[i], DEV)[0] for i in idx]
+        toks, _ = ar_transformer_generate_ragged(
+            ar, inp, ln, gens, max_new=steps, temperature=1.0, top_k=40,
+            prompt_output_tokens=pout, prompt_output_len=plen, compute_dtype="int8")
+        torch.cuda.synchronize()
+        return toks
+
+    s1, s2 = 8, 72
+    cost, row0 = {}, {}
+    for rows in DECODE_ROWS:
+        wall, busy = {}, {}
+        for steps in (s1, s2):
+            t0 = time.perf_counter()
+            toks = decode(rows, steps)
+            wall[steps] = time.perf_counter() - t0
+        row0[rows] = toks[0].cpu()
+        for steps in (s1, s2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                decode(rows, steps)
+            busy[steps] = sum(device_us_by_name(prof)[0].values()) / 1e3
+        cost[rows] = {"wall_ms_per_step": (wall[s2] - wall[s1]) / (s2 - s1) * 1e3,
+                      "device_ms_per_step": (busy[s2] - busy[s1]) / (s2 - s1)}
+    agree = {f"{a}/{b} rows": int((row0[a] == row0[b]).sum())
+             for a, b in zip(DECODE_ROWS, DECODE_ROWS[1:])}
+    log("voice padding cost (int8 decode, per step): " + json.dumps(cost))
+    log(f"voice padding: row 0's {s2} tokens equal between row counts: " + json.dumps(agree))
+    with RowAloneCheck(4) as mode:
+        decode(4, 2)
+    log(f"voice padding: {mode.checked} of {mode.ops} PyTorch operations of a prefill and "
+        f"two steps at 4 rows rerun on row 0 alone; row 0's bits differ in: "
+        + json.dumps(mode.differ))
+    return {"cost": cost, "row0_tokens_equal": agree, "differ": mode.differ}
 
 
 def _row(name, src, line, launches, err, ms, plain, bound, by, lib, **extra):
@@ -717,7 +930,7 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def quant_timing_phase(v8: dict, v4: dict, fused: dict, errs: dict) -> list:
+def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
     """Kernels 4, 5 and 8 at the voice path's shapes against their bounds,
     their plain versions and, for kernel 4, ``torch._weight_int8pack_mm``.
 
@@ -828,7 +1041,8 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict, errs: dict) -> list:
             f"({eager_ms} ms launched one by one from Python), plain {p_ms} ms, library {lib} ms, "
             f"bound {bound} ms ({by}); FM qkv ({rows_fm}, {FM_HIDDEN}) -> {n_fm}: kernel "
             f"{fm_ms} ms, plain {fm_plain} ms, library {fm_lib} ms, bound {fm_bound} ms ({fm_by})")
-        rows.append(_row(name, src, line, v["launches"][name], errs[name], k_ms, p_ms, bound,
+        err = max(v["path_err"], fused["prologue_err"] if name == "int4_matmul" else 0.0)
+        rows.append(_row(name, src, line, v["launches"][name], err, k_ms, p_ms, bound,
                          by, lib, fm_gemm_ms=fm_ms, fm_gemm_plain_ms=fm_plain,
                          fm_gemm_bound_ms=fm_bound, fm_gemm_library_ms=fm_lib,
                          fm_gemm_rows=rows_fm))
@@ -890,7 +1104,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     errs = kernel_phase(mel_mod, flash_mod, args.seed)
-    errs.update(quant_kernel_phase(args.seed))
+    quant_kernel_phase(args.seed)
     reference_phase(args.seed)
     ar_reference_phase(args.seed)
     sl = slice_phase(args.seed, MEL, FLASH)
@@ -900,7 +1114,8 @@ def main() -> int:
     v4 = voice_phase(cfg, args.seed, "int4", v8["audio"], args.max_new, kernels,
                      solo_check=False)
     fused = fused_phase(v8, v4, args.seed, args.max_new, kernels)
-    rows += quant_timing_phase(v8, v4, fused, errs)
+    padding_phase(v8)
+    rows += quant_timing_phase(v8, v4, fused)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

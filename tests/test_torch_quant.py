@@ -10,7 +10,6 @@ bit-equal to JAX's. Kernel outputs agree within 1e-5 of max|ref|: both sum
 the same bf16-rounded products in float32, in another order.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -32,6 +31,7 @@ from amphion_tpu.ops.pallas_kernels import (
 from amphion_tpu_torch.modules.llama import (
     LlamaConfig,
     LlamaDecoder,
+    _q8,
     cast_params,
     int4_group,
     quantize_llama_params,
@@ -175,10 +175,47 @@ def test_quantize_llama_params_bit_equal_to_jax(decoder_tree, quant):
         assert ours[k].dtype == theirs[k].dtype, k
         np.testing.assert_array_equal(ours[k].float().numpy(), theirs[k].float().numpy(), k)
     validate_quantized_tree(ours, qcfg)
-    with pytest.raises(ValueError, match="FUSED"):
-        validate_quantized_tree(ours, dataclasses.replace(qcfg, fused_quant_proj=False))
-    unfused = quantize_llama_params({k: v.bfloat16() for k, v in state.items()}, quant,
-                                    fuse=False)
-    assert "layer_0.attn.q_proj.kernel_q" in unfused
+    with pytest.raises(ValueError, match="missing"):
+        quantize_llama_params({k: v.bfloat16() for k, v in state.items()
+                               if "layer_1.attn.k_proj" not in k}, quant)
+    # JAX's unfused layout (separate q/k/v and gate/up) is refused at the
+    # boundary: by the validator, and by the weight bridge
+    unfused = jax.jit(functools.partial(jax_quantize_llama, quant=quant, fuse=False))(bf)
+    flat = _flatten(unfused)
+    assert "layer_0.attn.q_proj.kernel_q" in flat
     with pytest.raises(ValueError, match="UNFUSED"):
-        validate_quantized_tree(unfused, qcfg)
+        validate_quantized_tree(flat, qcfg)
+    with pytest.raises(KeyError, match="qkv_proj"):
+        from_flax(cast_params(LlamaDecoder(qcfg), torch.bfloat16), unfused)
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}{k}.") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+@jax.jit
+def _jax_q8(x):
+    """The int8 KV-cache quantizer of the JAX decoder, ``q8`` inside
+    `amphion_tpu.modules.llama.LlamaAttention` (a closure there, so its body
+    is repeated here), jitted as the decoder runs it."""
+    x = jnp.swapaxes(x, 1, 2)
+    s = jnp.max(jnp.abs(x), axis=-1) / 127.0
+    s = jnp.maximum(s, 1e-8)
+    return jnp.round(x / s[..., None]).astype(jnp.int8), s.astype(jnp.float32)
+
+
+def test_kv_cache_q8_bit_equal_to_jax():
+    """The port's int8 KV-cache integers and scales, bit for bit, over
+    (B, T, H, D) rows of widely spread magnitudes, some all zero (the 1e-8
+    floor)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 29, 5, 64)).astype(np.float32)
+    x *= np.exp(rng.uniform(-12, 4, (3, 29, 5, 1))).astype(np.float32)
+    x[0, :3] = 0.0
+    q_j, s_j = _jax_q8(x)
+    q_t, s_t = _q8(T(x))
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
