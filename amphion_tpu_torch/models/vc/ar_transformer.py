@@ -1,6 +1,7 @@
-"""Vevo autoregressive transformer, decode path (port of
+"""Vevo autoregressive transformer (port of
 `amphion_tpu/models/vc/ar_transformer.py`): content tokens → content-style
-tokens through a KV-cache Llama decoder.
+tokens through a KV-cache Llama decoder, and the teacher-forced training
+loss (`ARTransformer.loss`) over the packed sequence.
 
 One unified token space (as JAX): output ids raw in [0, output_vocab),
 input ids shifted by +output_vocab, then pad = in + out and
@@ -51,6 +52,7 @@ class ARTransformerConfig:
     use_global_timbre: bool = False  # not ported: off in every Vevo config
     decode_quant: str = "none"  # "none" | "int8" | "int4"
     kv_quant: bool = False
+    remat: bool = False  # recompute the decoder's blocks in the backward
 
     def __post_init__(self):
         if self.use_global_timbre:
@@ -91,7 +93,25 @@ class ARTransformerConfig:
             hidden_size=self.hidden, num_layers=self.num_layers,
             num_heads=self.num_heads, intermediate_size=self.intermediate,
             max_position=self.max_position, decode_quant=self.decode_quant,
-            kv_quant=self.kv_quant)
+            kv_quant=self.kv_quant, remat=self.remat)
+
+
+def _pack_block(ids, mask, bos: int, eos: int, pad: int, shift: int):
+    """(B, T) left-aligned valid tokens and their mask → (B, T + 2)
+    ``[BOS, shifted tokens, EOS, PAD…]`` and its mask (JAX `_pack_block`)."""
+    b, t = ids.shape
+    dev = ids.device
+    k = mask.sum(dim=1).long()  # (B,) valid counts
+    body = (ids.long() + shift) * mask.long()
+    body = torch.cat([body, torch.zeros((b, 1), dtype=torch.long, device=dev)], dim=1)
+    pos = torch.arange(t + 1, device=dev)[None, :]
+    body = torch.where(pos < k[:, None], body,
+                       torch.where(pos == k[:, None], eos, pad))
+    out_ids = torch.cat([torch.full((b, 1), bos, dtype=torch.long, device=dev), body],
+                        dim=1)
+    out_mask = torch.cat([torch.ones((b, 1), dtype=mask.dtype, device=dev),
+                          (pos <= k[:, None]).to(mask.dtype)], dim=1)
+    return out_ids, out_mask
 
 
 class ARTransformer(nn.Module):
@@ -105,6 +125,44 @@ class ARTransformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
+
+    def forward(self, input_tokens, input_mask, output_tokens, output_mask,
+                ref_mel=None, ref_mel_mask=None, style_tokens=None, style_mask=None):
+        """Teacher-forced logits over the packed sequence
+        ``[IN_BOS, inputs, IN_EOS, PAD…][OUT_BOS, outputs, OUT_EOS, PAD…]``
+        → (logits (B, Lin + Lout + 4, V), output block ids, its mask). The
+        global timbre encoder (``ref_mel``) and the prosody stream
+        (``style_tokens``) are not ported and raise."""
+        if ref_mel is not None or ref_mel_mask is not None:
+            raise NotImplementedError("the global timbre encoder (ref_mel) is not ported")
+        if style_tokens is not None or style_mask is not None:
+            raise NotImplementedError("the prosody-style token stream is not ported")
+        c = self.cfg
+        in_ids, in_m = _pack_block(input_tokens, input_mask, c.input_bos_id,
+                                   c.input_eos_id, c.pad_id, c.input_shift)
+        out_ids, out_m = _pack_block(output_tokens, output_mask, c.bos_id, c.eos_id,
+                                     c.pad_id, 0)
+        x = self.embed_tokens(torch.cat([in_ids, out_ids], dim=1))
+        h = self.decoder(x, mask=torch.cat([in_m, out_m], dim=1))
+        return self.lm_head(h), out_ids, out_m
+
+    def loss(self, input_tokens, input_mask, output_tokens, output_mask,
+             ref_mel=None, ref_mel_mask=None, style_tokens=None, style_mask=None):
+        """Shifted cross-entropy over the output block, OUT_BOS included
+        (the reference's HF loss): → (loss, {"ar_loss", "ar_acc"})."""
+        logits, out_ids, out_m = self.forward(
+            input_tokens, input_mask, output_tokens, output_mask, ref_mel,
+            ref_mel_mask, style_tokens, style_mask)
+        lo = out_ids.shape[1]
+        out_logits = logits[:, -lo - 1:-1]  # predict the output block from its prefix
+        w = out_m.float()
+        logp = torch.log_softmax(out_logits.float(), dim=-1)
+        ll = logp.gather(-1, out_ids[..., None])[..., 0]
+        denom = torch.clamp(w.sum(), min=1.0)
+        loss = -(ll * w).sum() / denom
+        with torch.no_grad():
+            acc = ((out_logits.argmax(-1) == out_ids) * w).sum() / denom
+        return loss, {"ar_loss": loss, "ar_acc": acc}
 
     def prefill(self, input_tokens, caches, prompt_output_tokens=None):
         """Prompt [IN_BOS, inputs, IN_EOS, OUT_BOS, prompt outputs] written

@@ -1,7 +1,8 @@
-"""Vevo flow-matching transformer, inference path (port of
+"""Vevo flow-matching transformer (port of
 `amphion_tpu/models/vc/flow_matching_transformer.py`): content-style tokens
 and a clean prompt mel → target mel, by integrating the estimated flow from
-noise over a Python loop of ODE steps.
+noise over a Python loop of ODE steps; and the training loss
+(`FlowMatchingTransformer.loss`).
 
 The estimator runs in the dtype its parameters were cast to, once, when the
 pipeline was built (``compute_dtype``, see `prepare_for_inference`); with
@@ -13,6 +14,7 @@ float32, as in JAX.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -26,9 +28,11 @@ from amphion_tpu_torch.modules.llama import (
     load_quantized,
     sinusoidal_step_embedding,
 )
+from amphion_tpu_torch.modules.flow_matching import cfm_loss, cfm_pair
 from amphion_tpu_torch.ops.ragged import masked_std, pack_segments, unpack_target
 
 SOLVERS = ("euler", "midpoint")
+TIME_SCHEDULERS = ("linear", "cos")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.bfloat16, "int4": torch.bfloat16}  # → activation dtype
 
@@ -43,13 +47,21 @@ class FMTConfig:
     max_position: int = 8192
     cond_scale_factor: int = 1  # nearest upsampling of the condition stream
     decode_quant: str = "none"  # "none" | "int8" | "int4" estimator projections
+    sigma_min: float = 1e-5  # of the CFM interpolant (training)
+    time_scheduler: str = "linear"  # flow-time draw in training: "linear" or "cos"
+    remat: bool = False  # recompute the estimator's blocks in the backward
+
+    def __post_init__(self):
+        if self.time_scheduler not in TIME_SCHEDULERS:
+            raise ValueError(f"time_scheduler {self.time_scheduler!r} not in "
+                             f"{TIME_SCHEDULERS}")
 
     def llama(self) -> LlamaConfig:
         return LlamaConfig(
             hidden_size=self.hidden, num_layers=self.num_layers,
             num_heads=self.num_heads, adaptive=True,
             intermediate_size=self.hidden * 4, max_position=self.max_position,
-            decode_quant=self.decode_quant)
+            decode_quant=self.decode_quant, remat=self.remat)
 
 
 class DiffLlamaMel(nn.Module):
@@ -97,6 +109,32 @@ class FlowMatchingTransformer(nn.Module):
             cond = torch.zeros_like(cond)
         x_in = torch.where(prompt_len_mask[..., None] > 0, prompt_mel, x_t)
         return self.diff_estimator(x_in, t, cond, mask=x_mask)
+
+    def loss(self, mel, tokens, prompt_len_mask, x_mask,
+             generator: torch.Generator | None = None, t=None, noise=None):
+        """CFM loss on the non-prompt frames (JAX `loss`): t ~ U(0, 1) clipped
+        to [1e-5, 1] (then ``1 - cos(t·π/2)`` under the cos scheduler), the
+        condition dropped for rows without a prompt, prompt frames entering
+        clean, the loss weighted by ``x_mask · (1 − prompt_len_mask)``.
+        mel (B, T, n_mel); tokens (B, T); masks (B, T). ``t`` (B,), the
+        uniform draw before clipping, and ``noise`` (B, T, n_mel) replace
+        the draws from ``generator``. Returns (loss, {"fm_loss": loss})."""
+        c = self.cfg
+        b = mel.shape[0]
+        if t is None:
+            t = torch.rand((b,), generator=generator, device=mel.device)
+        t = torch.clamp(t, 1e-5, 1.0)
+        if c.time_scheduler == "cos":
+            t = 1.0 - torch.cos(t * math.pi * 0.5)
+        if noise is None:
+            noise = torch.randn(mel.shape, generator=generator, device=mel.device)
+        x_t, v_target = cfm_pair(mel, t, noise, c.sigma_min)
+        has_prompt = (prompt_len_mask.sum(dim=1) > 0)[:, None, None]
+        cond = self._cond(tokens)[:, : mel.shape[1]] * has_prompt.to(mel.dtype)
+        x_in = torch.where(prompt_len_mask[..., None] > 0, mel, x_t)
+        v_pred = self.diff_estimator(x_in, t, cond, mask=x_mask)
+        loss = cfm_loss(v_pred, v_target, x_mask * (1.0 - prompt_len_mask))
+        return loss, {"fm_loss": loss}
 
     def flow_eval(self, xt, t, cond_tokens, prompt_mel, cfg=1.0,
                   rescale_cfg=0.75):

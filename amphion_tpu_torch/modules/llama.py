@@ -17,6 +17,11 @@ tensor, its plain version on the CPU.
 The decoder's caches are preallocated and written in place (JAX returns
 new arrays): ``LlamaDecoder.forward_cached`` returns the same list it was
 given.
+
+Training: with ``LlamaConfig.remat`` each block runs under
+``torch.utils.checkpoint`` (the JAX ``nn.remat``), and full-sequence
+attention is differentiable through the flash kernels' autograd Function
+(kernel 6 forward, kernel 7 backward).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from amphion_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
 from amphion_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -57,6 +63,7 @@ class LlamaConfig:
     # state with `quantize_llama_params`
     decode_quant: str = "none"
     kv_quant: bool = False  # int8 head-major KV cache in `LlamaDecoder`
+    remat: bool = False  # recompute each block's activations in the backward
 
     def __post_init__(self):
         if self.decode_quant not in QUANTS:
@@ -461,6 +468,14 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(h, rms_scale=post_scale)
 
 
+def _run_block(cfg: LlamaConfig, block: nn.Module, x, *args):
+    """One block, under activation checkpointing when ``cfg.remat`` and a
+    gradient is being recorded (as JAX wraps it in ``nn.remat``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
+
+
 class LlamaEncoder(nn.Module):
     """Bidirectional stack; ``adaptive=True`` conditions every norm on a
     (B, D) vector (the diffusion/flow time embedding)."""
@@ -481,13 +496,13 @@ class LlamaEncoder(nn.Module):
             raise ValueError(f"sequence of {t} exceeds max_position {c.max_position}")
         cos, sin = rotary_tables(t, c.head_dim, c.rope_theta, x.device)
         for i in range(c.num_layers):
-            x = getattr(self, f"layer_{i}")(x, cos, sin, cond=cond, kv_mask=mask)
+            x = _run_block(c, getattr(self, f"layer_{i}"), x, cos, sin, cond, mask)
         return self.final_norm(x, cond) if c.adaptive else self.final_norm(x)
 
 
 class LlamaDecoder(nn.Module):
-    """Causal stack decoded through a KV cache: a prefill of T tokens, then
-    single-token steps."""
+    """Causal stack: a full-sequence forward (training), or decoding through
+    a KV cache: a prefill of T tokens, then single-token steps."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -498,6 +513,19 @@ class LlamaDecoder(nn.Module):
             self.add_module(f"layer_{i}", LlamaBlock(cfg))
         self.final_norm = RMSNorm(cfg.hidden_size)
         self._rope = {}
+
+    def forward(self, x, mask=None):
+        """Causal forward over the whole sequence x (B, T, D) (the JAX
+        ``__call__`` without caches): ``mask`` (B, T), nonzero = a real
+        position, is the key mask of the causal flash attention."""
+        c = self.cfg
+        t = x.shape[1]
+        if t > c.max_position:
+            raise ValueError(f"sequence of {t} exceeds max_position {c.max_position}")
+        cos, sin = rotary_tables(t, c.head_dim, c.rope_theta, x.device)
+        for i in range(c.num_layers):
+            x = _run_block(c, getattr(self, f"layer_{i}"), x, cos, sin, None, mask, True)
+        return self.final_norm(x)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
         """Per-layer caches: with ``kv_quant`` the int8 head-major

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,6 +118,17 @@ class Kernel:
         with self._lock:
             self.launches = 0
             self.tagged = {}
+
+
+def no_backward(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``,
+    which has no backward: a CUDA kernel's output has no ``grad_fn``, so it
+    would silently cut the graph. Called by the wrappers of kernels that JAX
+    does not differentiate either (on a CUDA tensor only; their plain
+    versions on the CPU are differentiated by autograd)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() "
+                           "or on inputs that do not require grad")
 
 
 def build_all(kernels: list[Kernel]) -> None:

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P
+from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P, no_backward
 
 DECODE_ATTN = Kernel("decode_attn_int8",
                      {"decode_attn_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, Fl, P]})
@@ -57,6 +57,7 @@ def decode_attention_int8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         return decode_attention_int8_ref(q, ck, cv, ks, vs, valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8 runs on cuda or cpu, not {q.device}")
+    no_backward("decode_attention_int8", q, ks, vs)
     if d != 64 and d != 128:
         raise ValueError(f"decode_attention_int8 kernel takes head dim 64 or 128, got {d}")
     if (q.dtype != torch.float32 or ck.dtype != torch.int8 or cv.dtype != torch.int8

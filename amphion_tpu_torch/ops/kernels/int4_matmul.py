@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P
+from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P, no_backward
 
 INT4_MM = Kernel("int4_matmul",
                  {"int4_matmul": [P, P, P, P, P, I, I, I, I, I, I, Fl, P]})
@@ -114,6 +114,7 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
         return int4_matmul_ref(x, w_p, scale, group, rms_scale, rms_eps, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu, not {x.device}")
+    no_backward("int4_matmul", x, scale, rms_scale)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int4_matmul takes float32 or bf16 x, got {x.dtype}")
     if group != 128:

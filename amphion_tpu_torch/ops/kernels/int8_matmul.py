@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from amphion_tpu_torch.ops.kernels._build import I, Kernel, P
+from amphion_tpu_torch.ops.kernels._build import I, Kernel, P, no_backward
 
 INT8_MM = Kernel("int8_matmul", {"int8_matmul": [P, P, P, P, I, I, I, I, I, P]})
 
@@ -64,6 +64,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
         return int8_matmul_ref(x, w_q, scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
+    no_backward("int8_matmul", x, scale)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8_matmul takes float32 or bf16 x, got {x.dtype}")
     if k % 64:

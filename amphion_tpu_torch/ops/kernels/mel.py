@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P
+from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P, no_backward
 from amphion_tpu_torch.ops.stft import _dft_kernel, _reflect_pad
 
 MEL = Kernel("mel", {"mel_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, Fl, P]})
@@ -58,6 +58,7 @@ def log_mel(y: torch.Tensor, fbank: torch.Tensor, n_fft: int, hop: int,
         return log_mel_ref(y, fbank, n_fft, hop, win_size, clip_val)
     if y.device.type != "cuda":
         raise ValueError(f"log_mel runs on cuda or cpu, not {y.device}")
+    no_backward("log_mel", y, fbank)
     n_mel, f = fbank.shape
     if (f != n_fft // 2 + 1 or fbank.dtype != torch.float32
             or fbank.device != y.device or not fbank.is_contiguous()):

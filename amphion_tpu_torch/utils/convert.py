@@ -17,6 +17,15 @@ module's parameters finds each one's leaf in the tree by its dotted path
 Every parameter of the module must be found in the tree, with its shape;
 leaves of the tree that the module does not hold (a decoder the port does
 not run) are left out.
+
+`init_like_flax` draws a module's parameters as the JAX modules' Flax
+initializers do, walking the same scopes, so a port model trained from
+scratch starts from the distribution the JAX trainer starts from (torch's
+own defaults differ: ``nn.Linear`` draws uniform with variance
+1/(3·fan_in) where Flax ``Dense`` draws lecun_normal, ``nn.Embedding``
+draws std 1 where Flax ``Embed`` draws std 1/√features). JAX and torch
+random streams differ, so the values are not JAX's, only their
+distribution.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from amphion_tpu_torch.modules.llama import QDense, QDense4
+from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
+from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
 from amphion_tpu_torch.ops.kernels.int4_matmul import pack_int4
 
 
@@ -79,4 +89,68 @@ def from_flax(module: nn.Module, tree: dict) -> nn.Module:
                 raise ValueError(f"{mname}.{pname}: Flax shape {arr.shape} "
                                  f"!= port shape {tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    return module
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    """Flax's default kernel init: a normal truncated at ±2 standard
+    deviations, rescaled to variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw every parameter of ``module`` in place from the Flax
+    initializer of its JAX counterpart; returns the module. ``generator``
+    lives on the parameters' device.
+
+    - Dense (``nn.Linear``): kernel lecun_normal (fan_in = in features),
+      bias 0; the adaptive RMSNorm's ``to_weight`` kernel 0 and bias 1;
+    - Conv (``nn.Conv1d``): kernel lecun_normal (fan_in = in/groups · k),
+      bias 0;
+    - Embed (``nn.Embedding``): normal with std 1/√features;
+    - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
+    - VQ codebooks: ``FactorizedVectorQuantize`` normal(1),
+      ``VectorQuantize`` uniform with variance 1/codebook_size.
+
+    Buffers (quantized projections) are left alone; a parameter of any
+    other kind raises."""
+    done: set[int] = set()
+    g = generator
+    for name, sub in module.named_modules():
+        own = dict(sub.named_parameters(recurse=False))
+        if own and all(id(p) in done for p in own.values()):
+            continue  # drawn by its parent (to_weight)
+        if isinstance(sub, AdaptiveRMSNorm):
+            nn.init.zeros_(sub.to_weight.weight)
+            nn.init.ones_(sub.to_weight.bias)
+            done.update(id(p) for p in sub.to_weight.parameters())
+        elif isinstance(sub, (nn.Linear, nn.Conv1d)):
+            fan_in = sub.weight[0].numel()  # in (· k) per output
+            _lecun_normal_(sub.weight, fan_in, g)
+            if sub.bias is not None:
+                nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.Embedding):
+            sub.weight.normal_(0.0, sub.embedding_dim ** -0.5, generator=g)
+        elif isinstance(sub, nn.LayerNorm):
+            nn.init.ones_(sub.weight)
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, RMSNorm):
+            nn.init.ones_(sub.scale)
+        elif isinstance(sub, FactorizedVectorQuantize):
+            sub.codebook.normal_(0.0, 1.0, generator=g)
+        elif isinstance(sub, VectorQuantize):
+            limit = (3.0 / sub.codebook.shape[0]) ** 0.5
+            sub.codebook.uniform_(-limit, limit, generator=g)
+        else:
+            if own:
+                raise TypeError(f"init_like_flax: no Flax initializer known for "
+                                f"{name or 'the module'} ({type(sub).__name__}: "
+                                f"{sorted(own)})")
+            continue
+        done.update(id(p) for p in own.values())
+    missed = [n for n, p in module.named_parameters() if id(p) not in done]
+    if missed:
+        raise TypeError(f"init_like_flax left {missed} undrawn")
     return module

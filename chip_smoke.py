@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`amphion_tpu_torch`) on one CUDA card.
 
-Builds the five CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
+Builds the six CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
 with nvcc (one process each, in parallel) and holds each against its plain
-PyTorch version. Then, at the full width of ``config/vevo.json`` with
-random weights from ``--seed``:
+PyTorch version (the flash-attention backward also in bf16, against float64
+autograd and for bit-equal relaunches). Then, at the full width of
+``config/vevo.json`` with random weights from ``--seed``:
 
+- Vevo training: the FM and the AR trainer, each for 8 steps in float32
+  through `amphion_tpu_torch.bins.vc.train.main` on a synthetic corpus
+  (flash-attention forward and backward kernels in every layer, mel kernel
+  in the batch maker), with a checkpoint at step 4 and a resume from it that
+  must repeat steps 5-8; a small FM and AR step on the card against the CPU;
 - Vevo-Timbre: four concurrent requests (mel and flash-attention kernels);
 - Vevo-Voice: four concurrent requests in int8, then in int4 (AR decode of
   ``--max-new`` steps through the int8/int4 matmul kernels and the int8 KV
@@ -20,8 +26,8 @@ plain versions on the inputs the voice paths gave them (decode, AR prefill
 and flow-matching rows, with and without the RMSNorm prologue). It then
 measures what padding each voice decode to ``max_batch`` rows costs and
 which PyTorch operations make the padding necessary, times each kernel at
-the shapes the paths gave it and profiles one voice batch. Run from the
-repository root:
+the shapes the paths gave it, and profiles one voice batch and two steps of
+each trainer. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--max-new 768]
 
@@ -34,6 +40,7 @@ the one before it the ``{"kernels": [...]}`` timing line, the last line
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -296,7 +303,8 @@ def slice_phase(seed: int, mel_k, flash_k) -> dict:
             "mel_lengths": sorted(mel_inputs), "perf": perf}
 
 
-KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("mel", "mel_kernel"),
+KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd", "bwd_d"),
+                 ("mel", "mel_kernel"),
                  ("int8_matmul", "int8_ge"), ("int4_matmul", "int4_ge"),
                  ("decode_attn_int8", "decode_"), ]
 LIBRARY_GEMM = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
@@ -1069,6 +1077,388 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
     return rows
 
 
+# -- Vevo training: kernel 7 and the FM and AR trainers ---------------------------
+
+TRAIN_STEPS, TRAIN_SAVE = 8, 4
+TRAIN = {  # stage → (model_type, layers, (B, L, H, D) of attention, causal, loss key)
+    "fm": ("FlowMatchingTransformer", FM_LAYERS, (8, 256, 16, 64), False, "fm_loss"),
+    "ar": ("AutoregressiveTransformer", AR_LAYERS, (8, 516, AR_HEADS, 64), True, "ar_loss"),
+}
+BWD_CASES = {  # name → b, lq, lk, h, kvh, d, causal, mask ("ones" or "ragged")
+    "fm_train": (8, 256, 256, 16, 16, 64, False, "ones"),
+    "ar_train": (8, 516, 516, AR_HEADS, AR_HEADS, 64, True, "ragged"),
+    "gqa_uneven": (2, 200, 333, 8, 2, 64, False, "ragged"),
+}
+
+
+def bwd_inputs(case, dtype, g):
+    b, lq, lk, h, kvh, d, causal, kind = BWD_CASES[case]
+    dev = torch.device(DEV)
+    q, do = (torch.randn((b, lq, h, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, lk, kvh, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    if kind == "ones":
+        mask = torch.ones((b, lk), device=dev)
+    else:  # ragged: row i keeps its first lk - 37 i keys
+        valid = torch.tensor([lk - 37 * i for i in range(b)], device=dev)
+        mask = (torch.arange(lk, device=dev)[None] < valid[:, None]).float()
+    return q, k, v, mask, do, causal
+
+
+def dense_attention64(q, k, v, mask, causal):
+    """float64 attention with the kernels' masking (-1e30), for autograd."""
+    rep = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(rep, 2)) / math.sqrt(q.shape[-1])
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril(),
+                          -1e30)
+    s = s.masked_fill(~(mask > 0)[:, None, None, :], -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.repeat_interleave(rep, 2))
+
+
+def bwd_kernel_phase(flash_mod, seed: int) -> dict:
+    """Kernel 7 against its plain version at the trainers' shapes and a GQA
+    case with uneven unequal lengths, in float32 (dq, dk, dv within 1e-4 of
+    max|ref|: float32 sums in another order) and bf16 (2e-2 of max|ref| and
+    1e-2 relative Frobenius, the forward's gate); two launches on the same
+    inputs give the same bits (no atomics); and the autograd Function
+    (kernel 6 then 7) in float32 against float64 autograd, within 1e-4 of
+    max|ref|. Returns the largest float32 error at the FM shape."""
+    g = torch.Generator(DEV).manual_seed(seed + 17)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"kernel flash_attn_bwd ({dtype}):")
+        for case in BWD_CASES:
+            q, k, v, mask, do, causal = bwd_inputs(case, dtype, g)
+            out, lse = flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)
+            grads = flash_mod.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+            again = flash_mod.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+            torch.cuda.synchronize()
+            refs = flash_mod.flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+                if dtype == torch.float32:
+                    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+                    ok, detail = err <= 1e-4 * scale, f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})"
+                    if case == "fm_train":
+                        worst = max(worst, err)
+                else:
+                    ok, detail = close_bf16(got, ref)
+                check(f"{case} {tuple(q.shape)} k {tuple(k.shape)} causal={causal} {name}",
+                      ok and same, f"{detail}; bit-equal on relaunch: {same}")
+    log("autograd Function (kernel 6 + 7, float32) against float64 autograd:")
+    for case in BWD_CASES:
+        q, k, v, mask, do, causal = bwd_inputs(case, torch.float32, g)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(flash_mod.flash_attention(*leaves, mask, causal), leaves, do)
+        leaves64 = [x.double().requires_grad_() for x in (q, k, v)]
+        refs = torch.autograd.grad(dense_attention64(*leaves64, mask, causal), leaves64,
+                                   do.double())
+        for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+            err, scale = (a.double() - b).abs().max().item(), b.abs().max().item()
+            check(f"Function {case} {name}", err <= 1e-4 * scale,
+                  f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})")
+    return {"flash_bwd": worst}
+
+
+def synth_corpus(root, seed: int, n: int = 16):
+    """``n`` 24 kHz clips of at most one 1.28 s training segment (so the
+    dataset draws no random offsets) and their train.json."""
+    from amphion_tpu_torch.data.audio_io import save_wav
+    from amphion_tpu_torch.data.metadata import Utterance, save_metadata
+
+    rng = np.random.default_rng(seed + 23)
+    utts = []
+    for i in range(n):
+        sec = float(rng.uniform(0.9, 1.28))
+        path = root / "wav" / f"{i:02d}.wav"
+        save_wav(path, synth_audio(rng, sec), SR)
+        utts.append(Utterance("smoke", f"clip{i:02d}", str(path), sec))
+    save_metadata(root / "data" / "smoke" / "train.json", utts)
+
+
+def train_config(root, name: str, **train) -> str:
+    """config/vevo.json at full width, with the smoke corpus, a log dir and a
+    metrics file under ``root`` and the ``train`` overrides."""
+    cfg = {"base_config": os.path.abspath("config/vevo.json"), "dataset": ["smoke"],
+           "log_dir": str(root / "ckpts"), "preprocess": {"processed_dir": str(root / "data")},
+           "train": {"log_interval": 1, "metrics_path": str(root / f"{name}.jsonl"), **train}}
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def metrics(root, name: str) -> list[dict]:
+    return [json.loads(x) for x in (root / f"{name}.jsonl").read_text().splitlines()]
+
+
+TRAIN_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd", "bwd_d"),
+                ("mel", "mel_kernel"), ("optimizer", "multi_tensor_apply")]
+
+
+def profile_steps(trainer, n: int = 2) -> dict:
+    """``n`` more training steps of ``trainer`` under torch.profiler (device
+    activity only), on batches made beforehand: wall, device-busy share and
+    device time by group (kernels 6 and 7, cuBLAS GEMMs, the AdamW update,
+    the other elementwise and reduction work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bs = trainer.batch_size
+    batches = [trainer._make_batch(list(range(i * bs, (i + 1) * bs))) for i in range(n)]
+    state = trainer.loop.states
+    # the operations of the step's matrix products: 2·rows·in·out per Linear
+    # call in the forward, twice that again in the backward
+    fwd = [0.0]
+
+    def count(mod, args, out):
+        fwd[0] += 2.0 * args[0].numel() / args[0].shape[-1] * mod.in_features * mod.out_features
+
+    hooks = [m.register_forward_hook(count) for m in state.model.modules()
+             if isinstance(m, torch.nn.Linear)]
+    with torch.no_grad():
+        trainer._loss(state, batches[0])
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, aux = trainer._step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {name: 0.0 for name, _ in TRAIN_GROUPS}
+    groups.update(gemm=0.0, other=0.0)
+    by_name, n_records = device_us_by_name(prof)
+    for name, us in by_name.items():
+        group = next((g for g, pat in TRAIN_GROUPS if pat in name), None)
+        if group is None:
+            group = "gemm" if any(t in name for t in LIBRARY_GEMM) else "other"
+        groups[group] += us
+    busy = sum(groups.values()) / 1e6
+    top = sorted(((us, nm[:80]) for nm, us in by_name.items()), reverse=True)
+    return {"steps": n, "wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_records": n_records, "by_group_s": {k: v / 1e6 for k, v in groups.items()},
+            "per_step_ms": {k: v / 1e3 / n for k, v in groups.items()},
+            "share_of_device_time": {k: v / 1e6 / busy for k, v in groups.items()},
+            "gemm_tflop_per_step": 3 * fwd[0] / 1e12,
+            "gemm_tflop_per_s": 3 * fwd[0] * n / (groups["gemm"] / 1e6) / 1e12,
+            "top_kernels_ms": [[nm, us / 1e3] for us, nm in top[:6]]}
+
+
+def train_phase(stage: str, seed: int, fwd_k, bwd_k) -> dict:
+    """One trainer at the full width of config/vevo.json through the normal
+    entry point, `amphion_tpu_torch.bins.vc.train.main`: 8 steps with a
+    checkpoint at step 4, then a resume from that checkpoint that must
+    repeat steps 5-8's losses within 1e-5 relative, then a profiled rerun
+    of two steps."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from amphion_tpu_torch.bins.vc.train import main as train_main
+
+    model_type, layers, shape, causal, key = TRAIN[stage]
+    root = Path(tempfile.mkdtemp(prefix=f"vevo_{stage}_"))
+    try:
+        synth_corpus(root, seed)
+        cfg = train_config(root, "run", max_steps=TRAIN_STEPS,
+                           save_checkpoints_steps=TRAIN_SAVE)
+        fwd_k.reset()
+        bwd_k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg, "--model_type", model_type, "--exp_name", "run"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attn_fwd": fwd_k.launches, "flash_attn_bwd": bwd_k.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        model = trainer.loop.states.model
+        n_params = sum(p.numel() for p in model.parameters())
+        rows = metrics(root, "run")
+        losses = [r[key] for r in rows]
+        log(f"train {stage}: {model_type} {n_params / 1e6:.1f} M params, float32, batch "
+            f"{trainer.batch_size}, attention {shape} causal={causal}; {TRAIN_STEPS} steps in "
+            f"{wall:.1f} s (build and checkpoints included); losses {losses}")
+        check(f"train {stage} losses", len(losses) == TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses), f"{len(losses)} finite")
+        fg = trainer.first_grads
+        # FM: the flow-time MLP reaches the loss only through the adaptive
+        # norms' projections, whose kernels start at 0 (as in JAX), so its
+        # first gradient is exactly 0; every other tensor must get one
+        expect_zero = "diff_estimator.diff_step_mlp." if stage == "fm" else None
+        bad_zero = [n for n in fg["all_zero"]
+                    if expect_zero is None or not n.startswith(expect_zero)]
+        check(f"train {stage} step-1 gradients", not fg["missing"] and not bad_zero,
+              f"{fg['tensors']} tensors; without a gradient {fg['missing']}; all zero "
+              f"{fg['all_zero']} (allowed: the flow-time MLP's, FM only)")
+        want = layers * TRAIN_STEPS
+        check(f"train {stage} launches", launches["flash_attn_fwd"] == want
+              and launches["flash_attn_bwd"] == want,
+              f"{launches} (predicted {layers} layers x {TRAIN_STEPS} steps = {want} each)")
+        step_s = sorted(r["step_s"] for r in rows[2:])
+        med = step_s[len(step_s) // 2] if len(step_s) % 2 else sum(
+            step_s[len(step_s) // 2 - 1: len(step_s) // 2 + 1]) / 2
+        b, length = trainer.batch_size, shape[1]
+        unit = "frames" if stage == "fm" else "packed tokens"
+        perf = {"median_step_s": med, "step_s": [r["step_s"] for r in rows],
+                f"{unit.replace(' ', '_')}_per_s": b * length / med,
+                "max_memory_allocated_gib": peak}
+        log(f"train {stage} perf ({nvidia_smi()}): median step {med:.4f} s over steps 3-"
+            f"{TRAIN_STEPS}, {b * length / med:.0f} {unit}/s ({b} x {length} per step), "
+            f"peak {peak:.2f} GiB; " + json.dumps(perf))
+
+        # resume from the step-4 checkpoint, in a run directory of its own
+        ckdir = root / "ckpts" / "run" / "checkpoint"
+        step4 = next(p for p in ckdir.glob("epoch-*") if f"_step-{TRAIN_SAVE:07d}_" in p.name)
+        (root / "ckpts" / "resume" / "checkpoint").mkdir(parents=True)
+        (root / "ckpts" / "resume" / "checkpoint" / step4.name).symlink_to(step4)
+        prof = profile_steps(trainer)
+        log(f"train {stage} trace ({nvidia_smi()}): " + json.dumps(prof))
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        fwd_k.reset()
+        bwd_k.reset()
+        cfg2 = train_config(root, "resume", max_steps=TRAIN_STEPS, save_checkpoints_steps=0)
+        again = train_main(["--config", cfg2, "--model_type", model_type, "--exp_name", "resume",
+                            "--resume"])
+        rerun = [r[key] for r in metrics(root, "resume")]
+        first = losses[TRAIN_SAVE:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rerun, first)) if rerun else math.inf
+        check(f"train {stage} resume", len(rerun) == len(first) and rel <= 1e-5
+              and fwd_k.launches == layers * len(first),
+              f"steps {TRAIN_SAVE + 1}-{TRAIN_STEPS} from the step-{TRAIN_SAVE} checkpoint: "
+              f"max relative difference {rel:.3g} (tol 1e-5), bit-equal {rerun == first}; "
+              f"{fwd_k.launches} forward launches")
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "perf": perf, "trace": prof, "resume_bit_equal": rerun == first}
+
+
+def train_reference_phase(seed: int) -> None:
+    """One step of a small float32 FM and AR (2 layers, hidden 256, 4 heads,
+    D = 64) on the card and on the CPU with the same weights, the same
+    batch (made once on the CPU: mel, tokens, masks) and the same injected
+    flow time and noise: the loss within 1e-4 relative, every gradient
+    within 1e-3 of its tensor's max|ref|."""
+    import copy
+
+    from amphion_tpu_torch.models.codec.repcodec import RepCodec, RepCodecConfig
+    from amphion_tpu_torch.models.vc.ar_transformer import ARTransformer, ARTransformerConfig
+    from amphion_tpu_torch.models.vc.flow_matching_transformer import (
+        FlowMatchingTransformer, FMTConfig)
+    from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram_ref
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    gen = torch.Generator().manual_seed(seed + 29)
+    rng = np.random.default_rng(seed + 29)
+    b, n = 4, 128
+    audio = torch.from_numpy(np.stack([synth_audio(rng, n * HOP / SR) for _ in range(b)]))
+    mel = mel_spectrogram_ref(audio, MelConfig()).transpose(1, 2).contiguous()
+    tok = init_like_flax(RepCodec(RepCodecConfig(feature_dim=80, hidden=128, codebook_size=512,
+                                                 codebook_dim=8, num_blocks=2)), gen)
+    tokens = tok.encode(mel).clone()
+    pmask = (torch.arange(n)[None] < torch.tensor([20, 0, 40, 13])[:, None]).float()
+    xmask = torch.ones((b, n))
+    content = torch.from_numpy(rng.integers(0, 32, (b, 40)))
+    cmask = (torch.arange(40)[None] < torch.tensor([40, 33, 17, 25])[:, None]).float()
+    small = dict(hidden=256, num_layers=2, num_heads=4)
+    models = {
+        "fm": FlowMatchingTransformer(FMTConfig(token_vocab=512, **small)),
+        "ar": ARTransformer(ARTransformerConfig(input_vocab=32, output_vocab=512,
+                                                intermediate=512, **small)),
+    }
+    t = torch.rand((b,), generator=gen)
+    noise = torch.randn(mel.shape, generator=gen)
+    for stage, cpu in models.items():
+        init_like_flax(cpu, gen)
+        with torch.no_grad():  # move off the zero/one initialisers
+            for p in cpu.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+        gpu = copy.deepcopy(cpu).to(DEV)
+        res = {}
+        for name, m in (("cuda", gpu), ("cpu", cpu)):
+            dev = next(m.parameters()).device
+            if stage == "fm":
+                loss, _ = m.loss(mel.to(dev), tokens.to(dev), pmask.to(dev), xmask.to(dev),
+                                 t=t.to(dev), noise=noise.to(dev))
+            else:
+                loss, _ = m.loss(content.to(dev), cmask.to(dev), tokens.to(dev),
+                                 torch.ones((b, n), device=dev))
+            loss.backward()
+            res[name] = (loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()})
+        rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        worst, worst_name = 0.0, ""
+        for k, ref in res["cpu"][1].items():
+            err = (res["cuda"][1][k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            if err > worst:
+                worst, worst_name = err, k
+        check(f"reference: small f32 {stage} step, card vs CPU", rel <= 1e-4 and worst <= 1e-3,
+              f"loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f} (rel {rel:.2g}, tol 1e-4); "
+              f"worst gradient {worst_name} max|err|/max|ref| {worst:.2g} (tol 1e-3) over "
+              f"{len(res['cpu'][1])} tensors")
+
+
+def bwd_timing_phase(flash_mod, train: dict, errs: dict) -> tuple[dict, dict]:
+    """Kernel 7 (and kernel 6's training forward) in float32 at the FM and
+    AR training shapes: the wrapper's time per call (Δ reduction included),
+    the plain version's, the backward of ``F.scaled_dot_product_attention``
+    with the same mask (by ``torch.autograd.grad`` on a retained graph) and
+    the bound: 10 D operations per attended (query, key) pair at 67 TFLOP/s,
+    or q, k, v, o, dO, dq, dk, dv and the LSE once over 3.35 TB/s."""
+    g = torch.Generator(DEV).manual_seed(31)
+    out = {}
+    for stage, (_, _, (b, L, h, d), causal, _) in TRAIN.items():
+        case = "fm_train" if stage == "fm" else "ar_train"
+        q, k, v, mask, do, causal = bwd_inputs(case, torch.float32, g)
+        o, lse = flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)
+        k_ms = gpu_ms(lambda: flash_mod.flash_attention_bwd(q, k, v, mask, o, lse, do, causal))
+        p_ms = gpu_ms(lambda: flash_mod.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                                                causal), iters=3)
+        f_ms = gpu_ms(lambda: flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True))
+        allowed = (mask > 0)[:, None, :].expand(b, L, L)
+        if causal:
+            allowed = allowed & torch.ones((L, L), dtype=torch.bool, device=DEV).tril()
+        pairs = float(allowed.sum()) * h
+        ops, nbytes = 10.0 * d * pairs, 4.0 * (8 * b * L * h * d + b * h * L)
+        t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM
+        bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None])
+        backend = sdpa.grad_fn.name()
+        dot = do.transpose(1, 2)
+        lib_ms = gpu_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True))
+        lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(qt.detach(), kt.detach(),
+                                                                vt.detach(), attn_mask=allowed[:, None]))
+        # the forward with the LSE: QK^T and PV, 4 D per pair; q, k, v, o and the LSE
+        f_bound = max(4.0 * d * pairs / PEAK_F32, 4.0 * (4 * b * L * h * d + b * h * L) / HBM) * 1e3
+        out[stage] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                      "library_ms": lib_ms, "library_backend": backend, "fwd_ms": f_ms,
+                      "fwd_library_ms": lib_fwd, "fwd_bound_ms": f_bound, "pairs": pairs}
+        log(f"timing flash_attn_bwd {stage} ({b}, {L}, {h}, {d}) f32 causal={causal} "
+            f"({nvidia_smi()}): kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, library (SDPA "
+            f"backward, {backend}) {lib_ms:.5f} ms, bound {bound:.5f} ms ({by}: {ops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB); forward with LSE {f_ms:.5f} ms (SDPA {lib_fwd:.5f} ms, "
+            f"bound {f_bound:.5f} ms)")
+    fm, ar = out["fm"], out["ar"]
+    launches = train["fm"]["launches"]["flash_attn_bwd"] + train["ar"]["launches"]["flash_attn_bwd"]
+    row = _row("flash_attn_bwd", "flash_attn_bwd.cu", 1044, launches, errs["flash_bwd"],
+               fm["ms"], fm["plain_ms"], fm["bound_ms"], fm["bound_by"], fm["library_ms"],
+               shape="fm (8, 256, 16, 64) f32; ar_* (8, 516, 20, 64) f32 causal",
+               launches_per_step={"fm": FM_LAYERS, "ar": AR_LAYERS},
+               library_backend=fm["library_backend"], ar_ms=ar["ms"], ar_plain_ms=ar["plain_ms"],
+               ar_bound_ms=ar["bound_ms"], ar_library_ms=ar["library_ms"],
+               ar_library_backend=ar["library_backend"],
+               also_replaces="amphion_tpu/ops/pallas_kernels.py:1073")
+    fwd_extra = {"train_f32_ms": {"fm": fm["fwd_ms"], "ar": ar["fwd_ms"]},
+                 "train_f32_bound_ms": {"fm": fm["fwd_bound_ms"], "ar": ar["fwd_bound_ms"]},
+                 "train_f32_library_ms": {"fm": fm["fwd_library_ms"], "ar": ar["fwd_library_ms"]},
+                 "train_launches": {s: train[s]["launches"]["flash_attn_fwd"] for s in TRAIN}}
+    return row, fwd_extra
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1083,7 +1473,7 @@ def main() -> int:
     from amphion_tpu_torch.ops.kernels import _build
     from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
     from amphion_tpu_torch.ops.kernels.decode_attention import DECODE_ATTN
-    from amphion_tpu_torch.ops.kernels.flash_attention import FLASH
+    from amphion_tpu_torch.ops.kernels.flash_attention import FLASH, FLASH_BWD
     from amphion_tpu_torch.ops.kernels.int4_matmul import INT4_MM
     from amphion_tpu_torch.ops.kernels.int8_matmul import INT8_MM
     from amphion_tpu_torch.ops.kernels.mel import MEL
@@ -1096,17 +1486,21 @@ def main() -> int:
     card = nvidia_smi()
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}, nvcc {nvcc!r}, card {card!r}")
-    kernels = {"mel": MEL, "flash_attn_fwd": FLASH, "int8_matmul": INT8_MM,
-               "int4_matmul": INT4_MM, "decode_attn_int8": DECODE_ATTN}
+    kernels = {"mel": MEL, "flash_attn_fwd": FLASH, "flash_attn_bwd": FLASH_BWD,
+               "int8_matmul": INT8_MM, "int4_matmul": INT4_MM,
+               "decode_attn_int8": DECODE_ATTN}
     t0 = time.perf_counter()
     _build.build_all(list(kernels.values()))
     log(f"build: {', '.join(k.source.name for k in kernels.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     errs = kernel_phase(mel_mod, flash_mod, args.seed)
+    errs.update(bwd_kernel_phase(flash_mod, args.seed))
     quant_kernel_phase(args.seed)
     reference_phase(args.seed)
     ar_reference_phase(args.seed)
+    train_reference_phase(args.seed)
+    train = {stage: train_phase(stage, args.seed, FLASH, FLASH_BWD) for stage in TRAIN}
     sl = slice_phase(args.seed, MEL, FLASH)
     rows = timing_phase(mel_mod, flash_mod, sl, errs)
     cfg = load_config("config/vevo.json")
@@ -1116,6 +1510,12 @@ def main() -> int:
     fused = fused_phase(v8, v4, args.seed, args.max_new, kernels)
     padding_phase(v8)
     rows += quant_timing_phase(v8, v4, fused)
+    del v8, v4, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_row, fwd_extra = bwd_timing_phase(flash_mod, train, errs)
+    next(r for r in rows if r["name"] == "flash_attn_fwd").update(fwd_extra)
+    rows.append(bwd_row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

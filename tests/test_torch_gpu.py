@@ -176,3 +176,133 @@ def test_decode_attention_int8_kernel_matches_plain(cuda, b, h, s, d, lens):
     assert DECODE_ATTN.launches == launches + 1
     ref = decode_attention_int8_ref(q, ck, cv, ks, vs, valid)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# -- flash-attention backward (kernel 7) ---------------------------------------
+# The Vevo trainers' shapes (FM non-causal with an all-ones mask, AR causal
+# with a ragged key mask), GQA with uneven unequal lengths, Lq > Lk, and
+# head dim 128. float32 gradients within 1e-4 of max|ref| (float32 sums in
+# another order); bf16 within 2e-2 of max|ref| and 1e-2 relative Frobenius,
+# the forward's bf16 gate. Both directions start from the kernel's own
+# forward output and LSE.
+
+BWD_CASES = {  # b, lq, lk, h, kvh, d, causal, mask ("ones", "ragged", None)
+    "fm_train": (8, 256, 256, 16, 16, 64, False, "ones"),
+    "ar_train": (8, 516, 516, 20, 20, 64, True, "ragged"),
+    "gqa_uneven": (2, 200, 333, 8, 2, 64, False, "ragged"),
+    "gqa_causal_tails": (1, 37, 53, 8, 2, 64, True, "ragged"),
+    "lq_gt_lk": (1, 50, 30, 2, 1, 64, False, None),
+    "d128": (2, 190, 190, 4, 2, 128, True, "ragged"),
+}
+
+
+def _bwd_inputs(cuda, case, dtype):
+    b, lq, lk, h, kvh, d, causal, mask_kind = BWD_CASES[case]
+    g = torch.Generator(cuda).manual_seed(lq * 7 + lk)
+    q, do = (torch.randn((b, lq, h, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, lk, kvh, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    mask = None
+    if mask_kind == "ones":
+        mask = torch.ones((b, lk), device=cuda)
+    elif mask_kind == "ragged":
+        valid = torch.linspace(0.6, 1.0, b, device=cuda) * lk
+        mask = (torch.arange(lk, device=cuda)[None] < valid[:, None].ceil()).float()
+    return q, k, v, mask, do, causal
+
+
+def _grad_close(out, ref, dtype):
+    out, ref = out.float(), ref.float()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * scale, (err, scale)
+    else:
+        assert err <= 2e-2 * scale, (err, scale)
+        assert ((out - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    from amphion_tpu_torch.ops.kernels.flash_attention import (
+        FLASH_BWD, flash_attention_bwd, flash_attention_bwd_ref)
+
+    q, k, v, mask, do, causal = _bwd_inputs(cuda, case, dtype)
+    out, lse = flash_attention(q, k, v, mask, causal, return_lse=True)
+    n = FLASH_BWD.launches
+    grads = flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert FLASH_BWD.launches == n + 1
+    refs = flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal)
+    for got, ref, x in zip(grads, refs, (q, k, v)):
+        assert got.shape == x.shape and got.dtype == dtype
+        _grad_close(got, ref, dtype)
+    # no atomics: a second launch gives the same bits
+    again = flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("case", ["fm_train", "ar_train", "gqa_uneven"])
+def test_flash_function_grads_match_float64_autograd(cuda, case):
+    """The autograd Function (kernel 6 then kernel 7) in float32 against
+    float64 autograd through `attention_ref`'s arithmetic, within 1e-4 of
+    max|ref|."""
+    import math
+
+    q, k, v, mask, do, causal = _bwd_inputs(cuda, case, torch.float32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, mask, causal), leaves, do)
+
+    q64, k64, v64 = (x.double().requires_grad_() for x in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64.repeat_interleave(rep, 2))
+    s = s / math.sqrt(q.shape[-1])
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool, device=cuda).tril(), -1e30)
+    if mask is not None:
+        s = s.masked_fill(~(mask > 0)[:, None, None, :], -1e30)
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v64.repeat_interleave(rep, 2))
+    refs = torch.autograd.grad(ref, (q64, k64, v64), do.double())
+    for a, b in zip(got, refs):
+        err, scale = (a.double() - b).abs().max().item(), b.abs().max().item()
+        assert err <= 1e-4 * scale, (err, scale)
+
+
+def test_flash_bwd_fully_masked_rows_get_zero_grad(cuda):
+    from amphion_tpu_torch.ops.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do = (torch.randn((2, 70, 2, 64), device=cuda) for _ in range(4))
+    mask = torch.ones((2, 70), device=cuda)
+    mask[1] = 0.0
+    out, lse = flash_attention(q, k, v, mask, return_lse=True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, do)
+    assert torch.isfinite(dq).all() and not dq[1].abs().max()
+    assert not dk[1].abs().max() and not dv[1].abs().max()
+
+
+def test_backwardless_wrappers_raise_under_grad(cuda):
+    """Kernels 3, 4, 5 and 8 have no backward: under grad, with an input
+    that requires grad, their wrappers raise instead of cutting the graph."""
+    from amphion_tpu_torch.ops.kernels.decode_attention import decode_attention_int8
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, pack_int4, quantize_weight_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
+
+    w = torch.randn((256, 256), device=cuda)
+    x = torch.randn((4, 256), device=cuda, requires_grad=True)
+    w_q, sc = quantize_weight_int8(w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        int8_matmul(x, w_q, sc)
+    w_int, sc4 = quantize_weight_int4(w, 128)
+    with pytest.raises(RuntimeError, match="no backward"):
+        int4_matmul(x, pack_int4(w_int), sc4, 128)
+    y = torch.randn((1, 24000), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mel_spectrogram(y, MelConfig())
+    q = torch.randn((1, 2, 64), device=cuda, requires_grad=True)
+    ck = torch.zeros((1, 2, 16, 64), dtype=torch.int8, device=cuda)
+    ks = torch.ones((1, 2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention_int8(q, ck, ck, ks, ks, torch.tensor([16], device=cuda))
+    with torch.no_grad():  # the same calls run without grad
+        int8_matmul(x, w_q, sc)
+        mel_spectrogram(y, MelConfig())
