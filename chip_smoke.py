@@ -44,6 +44,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -1244,12 +1245,23 @@ def profile_steps(trainer, n: int = 2) -> dict:
             "top_kernels_ms": [[nm, us / 1e3] for us, nm in top[:6]]}
 
 
-def train_phase(stage: str, seed: int, fwd_k, bwd_k) -> dict:
+def train_launches(kernels: dict, layers: int, steps: int) -> tuple[bool, str]:
+    """The path's launch counts against those worked out beforehand: one mel
+    per batch (each epoch's batches are all consumed, none made ahead past
+    the last step), kernels 6 and 7 once per layer and step, no other."""
+    got = {name: k.launches for name, k in kernels.items()}
+    want = {name: 0 for name in kernels}
+    want.update(mel=steps, flash_attn_fwd=layers * steps, flash_attn_bwd=layers * steps)
+    return got == want, f"{got} (predicted {want}: {layers} layers x {steps} steps)"
+
+
+def train_phase(stage: str, seed: int, kernels: dict) -> dict:
     """One trainer at the full width of config/vevo.json through the normal
     entry point, `amphion_tpu_torch.bins.vc.train.main`: 8 steps with a
     checkpoint at step 4, then a resume from that checkpoint that must
     repeat steps 5-8's losses within 1e-5 relative, then a profiled rerun
-    of two steps."""
+    of two steps. Every launch count is set to 0 just before each run and
+    read just after."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1262,14 +1274,15 @@ def train_phase(stage: str, seed: int, fwd_k, bwd_k) -> dict:
         synth_corpus(root, seed)
         cfg = train_config(root, "run", max_steps=TRAIN_STEPS,
                            save_checkpoints_steps=TRAIN_SAVE)
-        fwd_k.reset()
-        bwd_k.reset()
+        for k in kernels.values():
+            k.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainer = train_main(["--config", cfg, "--model_type", model_type, "--exp_name", "run"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_attn_fwd": fwd_k.launches, "flash_attn_bwd": bwd_k.launches}
+        launches_ok, launches_detail = train_launches(kernels, layers, TRAIN_STEPS)
+        launches = {name: k.launches for name, k in kernels.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         model = trainer.loop.states.model
         n_params = sum(p.numel() for p in model.parameters())
@@ -1290,13 +1303,8 @@ def train_phase(stage: str, seed: int, fwd_k, bwd_k) -> dict:
         check(f"train {stage} step-1 gradients", not fg["missing"] and not bad_zero,
               f"{fg['tensors']} tensors; without a gradient {fg['missing']}; all zero "
               f"{fg['all_zero']} (allowed: the flow-time MLP's, FM only)")
-        want = layers * TRAIN_STEPS
-        check(f"train {stage} launches", launches["flash_attn_fwd"] == want
-              and launches["flash_attn_bwd"] == want,
-              f"{launches} (predicted {layers} layers x {TRAIN_STEPS} steps = {want} each)")
-        step_s = sorted(r["step_s"] for r in rows[2:])
-        med = step_s[len(step_s) // 2] if len(step_s) % 2 else sum(
-            step_s[len(step_s) // 2 - 1: len(step_s) // 2 + 1]) / 2
+        check(f"train {stage} launches", launches_ok, launches_detail)
+        med = statistics.median(r["step_s"] for r in rows[2:])
         b, length = trainer.batch_size, shape[1]
         unit = "frames" if stage == "fm" else "packed tokens"
         perf = {"median_step_s": med, "step_s": [r["step_s"] for r in rows],
@@ -1316,19 +1324,19 @@ def train_phase(stage: str, seed: int, fwd_k, bwd_k) -> dict:
         del trainer, model
         gc.collect()
         torch.cuda.empty_cache()
-        fwd_k.reset()
-        bwd_k.reset()
+        for k in kernels.values():
+            k.reset()
         cfg2 = train_config(root, "resume", max_steps=TRAIN_STEPS, save_checkpoints_steps=0)
         again = train_main(["--config", cfg2, "--model_type", model_type, "--exp_name", "resume",
                             "--resume"])
+        resume_ok, resume_detail = train_launches(kernels, layers, TRAIN_STEPS - TRAIN_SAVE)
         rerun = [r[key] for r in metrics(root, "resume")]
         first = losses[TRAIN_SAVE:]
         rel = max(abs(a - b) / abs(b) for a, b in zip(rerun, first)) if rerun else math.inf
-        check(f"train {stage} resume", len(rerun) == len(first) and rel <= 1e-5
-              and fwd_k.launches == layers * len(first),
+        check(f"train {stage} resume", len(rerun) == len(first) and rel <= 1e-5 and resume_ok,
               f"steps {TRAIN_SAVE + 1}-{TRAIN_STEPS} from the step-{TRAIN_SAVE} checkpoint: "
               f"max relative difference {rel:.3g} (tol 1e-5), bit-equal {rerun == first}; "
-              f"{fwd_k.launches} forward launches")
+              f"launches {resume_detail}")
         del again
         gc.collect()
         torch.cuda.empty_cache()
@@ -1500,7 +1508,7 @@ def main() -> int:
     reference_phase(args.seed)
     ar_reference_phase(args.seed)
     train_reference_phase(args.seed)
-    train = {stage: train_phase(stage, args.seed, FLASH, FLASH_BWD) for stage in TRAIN}
+    train = {stage: train_phase(stage, args.seed, kernels) for stage in TRAIN}
     sl = slice_phase(args.seed, MEL, FLASH)
     rows = timing_phase(mel_mod, flash_mod, sl, errs)
     cfg = load_config("config/vevo.json")
