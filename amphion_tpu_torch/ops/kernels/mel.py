@@ -1,4 +1,4 @@
-"""Fused log-mel front end: kernel 1 (`csrc/mel.cu`) and its plain version.
+"""Fused log-mel front end: kernel 3 (`csrc/mel.cu`) and its plain version.
 
 Port of `mel_spectrogram_pallas` (amphion_tpu/ops/pallas_kernels.py:372).
 `log_mel` computes ``log(max(mel @ |STFT(reflect_pad(y))|, clip))`` as

@@ -7,6 +7,10 @@ module's parameters finds each one's leaf in the tree by its dotted path
 
 - Linear ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
 - Conv1d ``kernel`` (k, in/groups, out) → ``weight`` (out, in/groups, k);
+- weight-normalised convolutions (`WNConv1d`, `WNConvTranspose1d`): the
+  kernel as a Conv's, a ConvTranspose's (k, in, out) → (in, out, k)
+  reversed along k; the ``scale`` from the one sibling ``WeightNorm_*``
+  scope that holds the leaf ``"<conv name>/kernel/scale"``;
 - LayerNorm ``scale`` → ``weight``; Embedding ``embedding`` → ``weight``;
 - any other parameter (RMSNorm ``scale``, ConvNeXt ``gamma``, a VQ
   ``codebook``) carries over under its own name;
@@ -34,8 +38,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from amphion_tpu_torch.modules.activations import Snake, SnakeBeta
 from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
 from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
+from amphion_tpu_torch.modules.weight_norm import WNConv1d, WNConvTranspose1d
 from amphion_tpu_torch.ops.kernels.int4_matmul import pack_int4
 
 
@@ -50,8 +56,32 @@ def _leaf(tree: dict, path: list[str], name: str, dtype=np.float32):
     return np.asarray(node[name]).astype(dtype)
 
 
+def _weight_norm_scale(tree: dict, path: list[str]) -> np.ndarray:
+    """The scale Flax's ``WeightNorm`` keeps for the conv at ``path``: the
+    leaf ``"<name>/kernel/scale"`` of a ``WeightNorm_*`` scope beside it."""
+    parent = tree
+    for key in path[:-1]:
+        parent = parent[key]
+    leaf = f"{path[-1]}/kernel/scale"
+    found = [k for k, v in parent.items()
+             if k.startswith("WeightNorm_") and isinstance(v, dict) and leaf in v]
+    if len(found) != 1:
+        raise KeyError(f"{'.'.join(path)}: {len(found)} WeightNorm scopes hold {leaf!r} "
+                       f"(want exactly one)")
+    return _leaf(tree, path[:-1] + found, leaf)
+
+
 def _flax_leaf(module: nn.Module, tree: dict, path: list[str], pname: str):
     """The Flax array for parameter ``pname`` of ``module``, in torch layout."""
+    if isinstance(module, (WNConv1d, WNConvTranspose1d)):
+        if pname == "scale":
+            return _weight_norm_scale(tree, path)
+        if pname == "bias":
+            return _leaf(tree, path, "bias")
+        kernel = _leaf(tree, path, "kernel")  # (k, in, out)
+        if isinstance(module, WNConv1d):
+            return kernel.transpose(2, 1, 0)
+        return kernel.transpose(1, 2, 0)[:, :, ::-1]
     if isinstance(module, (QDense, QDense4)):
         if pname == "scale":
             return _leaf(tree, path, "scale")
@@ -109,6 +139,9 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
       bias 0; the adaptive RMSNorm's ``to_weight`` kernel 0 and bias 1;
     - Conv (``nn.Conv1d``): kernel lecun_normal (fan_in = in/groups · k),
       bias 0;
+    - weight-normalised Conv and ConvTranspose: kernel lecun_normal
+      (fan_in = in · k for both, as Flax counts it), bias 0, scale 1;
+    - Snake and SnakeBeta: α (and β) 0 in log scale, else 1;
     - Embed (``nn.Embedding``): normal with std 1/√features;
     - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
     - VQ codebooks: ``FactorizedVectorQuantize`` normal(1),
@@ -131,6 +164,15 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(sub.weight, fan_in, g)
             if sub.bias is not None:
                 nn.init.zeros_(sub.bias)
+        elif isinstance(sub, (WNConv1d, WNConvTranspose1d)):
+            w = sub.weight  # (out, in, k) or (in, out, k)
+            fan_in = w.shape[2] * (w.shape[1] if isinstance(sub, WNConv1d) else w.shape[0])
+            _lecun_normal_(w, fan_in, g)
+            nn.init.zeros_(sub.bias)
+            nn.init.ones_(sub.scale)
+        elif isinstance(sub, (Snake, SnakeBeta)):
+            for p in own.values():
+                nn.init.constant_(p, 0.0 if sub.alpha_logscale else 1.0)
         elif isinstance(sub, nn.Embedding):
             sub.weight.normal_(0.0, sub.embedding_dim ** -0.5, generator=g)
         elif isinstance(sub, nn.LayerNorm):

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`amphion_tpu_torch`) on one CUDA card.
 
-Builds the six CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
+Builds the eight CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
 with nvcc (one process each, in parallel) and holds each against its plain
 PyTorch version (the flash-attention backward also in bf16, against float64
-autograd and for bit-equal relaunches). Then, at the full width of
-``config/vevo.json`` with random weights from ``--seed``:
+autograd and for bit-equal relaunches; Snake's forward and backward and the
+anti-aliased SnakeBeta in float32 and bf16, ragged and short signals). Then,
+at the full width of ``config/vevo.json`` with random weights from
+``--seed``:
 
 - Vevo training: the FM and the AR trainer, each for 8 steps in float32
   through `amphion_tpu_torch.bins.vc.train.main` on a synthetic corpus
@@ -19,6 +21,12 @@ autograd and for bit-equal relaunches). Then, at the full width of
 - one single-utterance int8 Vevo-Voice run with the fused decode-attention
   kernel (``AMPHION_FUSED_DECODE_ATTN=1``) and an int4 decode with the
   fused RMSNorm prologue (``AMPHION_FUSED_RMS=1``);
+- BigVGAN copy synthesis at the width of
+  ``egs/vocoder/gan/bigvgan/exp_config.json`` through
+  `amphion_tpu_torch.bins.vocoder.inference.main` on six files of 2-10 s
+  (mel kernel, anti-aliased SnakeBeta kernel in all 73 activations), a
+  small generator on the card against the CPU, and Snake's kernel driven
+  through ``Snake(use_pallas=True)`` (no model path runs it);
 
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
@@ -26,15 +34,16 @@ plain versions on the inputs the voice paths gave them (decode, AR prefill
 and flow-matching rows, with and without the RMSNorm prologue). It then
 measures what padding each voice decode to ``max_batch`` rows costs and
 which PyTorch operations make the padding necessary, times each kernel at
-the shapes the paths gave it, and profiles one voice batch and two steps of
-each trainer. Run from the repository root:
+the shapes the paths gave it, and profiles one voice batch, two steps of
+each trainer and one 10 s copy synthesis. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--max-new 768]
 
 Exits nonzero on any failure, and at once when there is no CUDA card. The
-second-to-last line of standard output is the card's name and power limit,
-the one before it the ``{"kernels": [...]}`` timing line, the last line
-``{"ok": true, "device": {...}}``.
+last three lines of standard output are the ``{"kernels": [...]}`` timing
+line, then the card's name and power limit (``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader``) on the line before
+the last, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -1467,6 +1476,414 @@ def bwd_timing_phase(flash_mod, train: dict, errs: dict) -> tuple[dict, dict]:
     return row, fwd_extra
 
 
+# -- BigVGAN copy synthesis: kernels 1 and 2 --------------------------------------
+
+VOC_CONFIG = "egs/vocoder/gan/bigvgan/exp_config.json"
+# (B, T, C) of the generator's activations at the egs training batch (16 x 64
+# frames), and kernel 2's launches at each per forward: 3 AMP blocks x 3
+# dilations x 2 per stage, plus the final activation at the last stage's shape
+AMP_SHAPES = [(16, 320, 256), (16, 1280, 128), (16, 3840, 64), (16, 7680, 32)]
+AMP_LAUNCHES = (18, 18, 18, 19)
+AA_PER_FORWARD = sum(AMP_LAUNCHES)  # 73
+VOC_SECONDS = (2.0, 3.5, 5.0, 6.5, 8.0, 10.0)  # the six copy-synthesis files
+# operations per output element, a sine counted as one operation (the least
+# it could cost; sinf takes tens of instructions): kernel 2's two 6-tap up
+# FIRs (24), SnakeBeta on both phases (2 x 5) and the 12-tap down FIR (24);
+# kernel 1's forward (5) and backward (dx 4, dalpha 9)
+AA_OPS, SNAKE_OPS, SNAKE_BWD_OPS = 58, 5, 13
+VOC_GROUPS = [("aa_snake", "aa_snake_kernel"), ("mel", "mel_kernel"),
+              ("snake", "snake_")]
+CONV_NAMES = ("conv", "xmma", "implicit", "cudnn", "winograd", "fft", "gemm", "cutlass",
+              "sm90_", "nvjet")
+
+
+def within_bf16_step(out, ref) -> tuple[bool, str]:
+    """``out`` (bf16) equals ``ref`` (bf16, the float32 result rounded) or
+    is one bf16 step (8 significant bits) away from it."""
+    o, r = out.detach().float(), ref.detach().float()
+    big = torch.maximum(o.abs(), r.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    diff = (o - r).abs()
+    return (bool((diff <= step).all()),
+            f"{int((diff > 0).sum())} of {diff.numel()} differ, worst {float((diff / step).max()):.2f} "
+            "bf16 steps (tol 1)")
+
+
+def snake_kernel_phase(seed: int) -> dict:
+    """Kernels 1 and 2 against their plain versions on the card.
+
+    Kernel 2 at the egs training shapes, a ragged T and T < 13, float32
+    within 1e-5 of max|ref| over the whole signal (the same arithmetic with
+    the same edge pad; sinf and FMA contraction differ in the last bits) and
+    bf16 within one bf16 step of the float32 result rounded; `AASnakeBetaFn`'s
+    output and gradients (autograd of the unfused chain through cuDNN)
+    against the CPU, within 1e-5 / 1e-4 of max|ref| (sums over time in
+    another order). Kernel 1 through ``Snake(use_pallas=True)`` at the AMP
+    shapes and a ragged T: y, dx and dalpha within 1e-5 of max|ref| in
+    float32 (bf16: y and dx within one step, dalpha 1e-5), dalpha bit-equal
+    on relaunch. Returns the largest float32 errors."""
+    from amphion_tpu_torch.modules.activations import Snake
+    from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+
+    g = torch.Generator(DEV).manual_seed(seed + 41)
+    errs = {"aa_snake": 0.0, "snake": 0.0, "snake_bwd": 0.0}
+
+    def params(c):
+        return (torch.rand((c,), generator=g, device=DEV) * 1.5 + 0.5 for _ in range(2))
+
+    def rel(out, ref):
+        err = (out.float() - ref.float()).abs().max().item()
+        return err, ref.float().abs().max().item()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"kernel aa_snake ({dtype}):")
+        for b, t, c in AMP_SHAPES + [(3, 1000, 96), (2, 12, 40), (1, 1, 8)]:
+            x = (torch.randn((b, t, c), generator=g, device=DEV) * 3).to(dtype)
+            alpha, beta = params(c)
+            out = aa_mod.aa_snakebeta(x, alpha, beta)
+            torch.cuda.synchronize()
+            ref = aa_mod.aa_snakebeta_ref(x, alpha, beta)
+            if dtype == torch.float32:
+                err, scale = rel(out, ref)
+                ok, detail = err <= 1e-5 * scale, f"max|err| {err:.3g} (tol 1e-5 of {scale:.3g})"
+                errs["aa_snake"] = max(errs["aa_snake"], err)
+            else:
+                ok, detail = within_bf16_step(out, ref)
+            check(f"aa_snake {(b, t, c)}", ok and out.shape == x.shape and out.dtype == dtype,
+                  detail)
+    x = torch.randn((2, 1000, 64), generator=g, device=DEV) * 3
+    alpha, beta = params(64)
+    gout = torch.randn(x.shape, generator=g, device=DEV)
+    leaves = [t.clone().requires_grad_() for t in (x, alpha, beta)]
+    y = aa_mod.AASnakeBetaFn.apply(*leaves)
+    grads = torch.autograd.grad(y, leaves, gout)
+    cpu = [t.cpu().requires_grad_() for t in (x, alpha, beta)]
+    y_cpu = aa_mod.AASnakeBetaFn.apply(*cpu)
+    refs = torch.autograd.grad(y_cpu, cpu, gout.cpu())
+    err, scale = rel(y.cpu(), y_cpu)
+    check("AASnakeBetaFn (2, 1000, 64) output, card vs CPU", err <= 1e-5 * scale,
+          f"max|err| {err:.3g} (tol 1e-5 of {scale:.3g})")
+    for name, got, ref in zip(("dx", "dalpha", "dbeta"), grads, refs):
+        err, scale = rel(got.cpu(), ref)
+        check(f"AASnakeBetaFn {name}, card vs CPU autograd of the chain", err <= 1e-4 * scale,
+              f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"kernel snake forward and backward through Snake(use_pallas=True) ({dtype}):")
+        for b, t, c in AMP_SHAPES + [(2, 300, 8)]:
+            m = Snake(c, use_pallas=True).to(DEV)
+            with torch.no_grad():
+                m.alpha.copy_(next(params(c)))
+            x = (torch.randn((b, t, c), generator=g, device=DEV) * 3).to(dtype).requires_grad_()
+            gout = torch.randn((b, t, c), generator=g, device=DEV).to(dtype)
+            y = m(x)
+            y.backward(gout)
+            torch.cuda.synchronize()
+            a = m.alpha.detach()
+            ref_y = snake_mod.snake_ref(x.detach(), a)
+            ref_dx, ref_da = snake_mod.snake_bwd_ref(x.detach(), a, gout)
+            dx2, da2 = snake_mod.snake_bwd(x.detach(), a, gout)
+            same = torch.equal(da2, m.alpha.grad)
+            err_a, scale_a = rel(m.alpha.grad, ref_da)
+            ok_a = err_a <= 1e-5 * scale_a
+            if dtype == torch.float32:
+                (err_y, scale_y), (err_x, scale_x) = rel(y, ref_y), rel(x.grad, ref_dx)
+                ok = err_y <= 1e-5 * scale_y and err_x <= 1e-5 * scale_x
+                detail = (f"y {err_y:.3g} of {scale_y:.3g}, dx {err_x:.3g} of {scale_x:.3g}, "
+                          f"dalpha {err_a:.3g} of {scale_a:.3g} (tol 1e-5 of max|ref|)")
+                errs["snake"] = max(errs["snake"], err_y)
+                errs["snake_bwd"] = max(errs["snake_bwd"], err_x, err_a)
+            else:
+                (ok_y, d_y), (ok_x, d_x) = within_bf16_step(y, ref_y), within_bf16_step(x.grad, ref_dx)
+                ok = ok_y and ok_x
+                detail = f"y: {d_y}; dx: {d_x}; dalpha {err_a:.3g} of {scale_a:.3g} (tol 1e-5)"
+            check(f"snake {(b, t, c)}", ok and ok_a and same,
+                  f"{detail}; dalpha bit-equal on relaunch: {same}")
+    return errs
+
+
+def perturb_generator(gen, seed: int) -> None:
+    """Random weight-norm scales, biases and log-scale Snake parameters, so
+    a generator drawn by `init_like_flax` (scales 1, biases and log alpha 0)
+    exercises every parameter."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                v = rng.uniform(0.5, 1.0, p.shape)
+            elif leaf in ("bias", "alpha", "beta"):
+                v = 0.1 * rng.standard_normal(p.shape)
+            else:
+                continue
+            p.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def vocoder_reference_phase(seed: int) -> None:
+    """A small float32 BigVGAN (2 stages, 64 channels, the egs resblocks) on
+    the card against the same on the CPU, with the fused activation
+    (kernel 2 against its plain version) and with the unfused chain: the
+    waveforms within 1e-4 absolute (TF32 off)."""
+    import dataclasses
+
+    from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    cfg = BigVGANConfig(upsample_rates=(5, 4), upsample_kernel_sizes=(10, 8),
+                        upsample_initial_channel=64)
+    mel = torch.from_numpy(np.random.default_rng(seed + 43).standard_normal((2, 50, 80))
+                           .astype(np.float32))
+    for pallas in (True, False):
+        gen = BigVGANGenerator(dataclasses.replace(cfg, use_pallas_act=pallas)).eval()
+        init_like_flax(gen, torch.Generator().manual_seed(seed))
+        perturb_generator(gen, seed)
+        with torch.no_grad():
+            ref = gen(mel)
+            out = gen.to(DEV)(mel.to(DEV)).cpu()
+        err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+        check(f"reference: small BigVGAN use_pallas_act={pallas}, card vs CPU",
+              out.shape == ref.shape == (2, 50 * 20) and err <= 1e-4 and scale > 1e-3,
+              f"max|err| {err:.3g} (tol 1e-4), max|ref| {scale:.3g}")
+
+
+def vocoder_phase(seed: int, kernels: dict) -> dict:
+    """BigVGAN copy synthesis at the full width of the egs config through the
+    normal entry point, `amphion_tpu_torch.bins.vocoder.inference.main`, in
+    ``from_audio`` mode: random weights from the seed (Flax initializers,
+    perturbed) written with `save_generator`, one warm-up file, then six
+    files of 2-10 s. Checks each wav (finite, floor(T/120)*120 samples) and
+    the launch counts worked out beforehand (kernel 2: 73 per file, kernel
+    3: 1 per file, no other). Then it runs the six files again (each length
+    now seen: cuDNN has its plans), profiles one file at a seen length and
+    one at a new length, and times one batched forward at the egs training
+    shape (16 x 64 frames), fused and unfused."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from amphion_tpu_torch.bins.vocoder.inference import main as infer_main
+    from amphion_tpu_torch.bins.vocoder.inference import synthesize_file
+    from amphion_tpu_torch.data.audio_io import load_wav, save_wav
+    from amphion_tpu_torch.ops.mel import MelConfig
+    from amphion_tpu_torch.runtime.vocoder_trainer import (
+        build_generator, restore_generator, save_generator)
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    cfg = load_config(VOC_CONFIG)
+    gen, hop = build_generator(cfg, 80)
+    check("vocoder config", gen.cfg.use_pallas_act and hop == HOP
+          and gen.cfg.upsample_initial_channel == 512,
+          f"use_pallas_act {gen.cfg.use_pallas_act}, hop {hop}, "
+          f"{gen.cfg.upsample_initial_channel} channels, rates {gen.cfg.upsample_rates}")
+    gen = gen.to(DEV).eval()
+    init_like_flax(gen, torch.Generator(DEV).manual_seed(seed))
+    perturb_generator(gen, seed)
+    n_params = sum(p.numel() for p in gen.parameters())
+    root = Path(tempfile.mkdtemp(prefix="bigvgan_"))
+    rng = np.random.default_rng(seed + 47)
+    try:
+        ckpt = save_generator(root / "ckpt", gen, epoch=1, step=1)
+        lengths = {}
+        for name, secs in [("warm/w", (3.0,)), ("wav/f", VOC_SECONDS),
+                           ("ten/t", (max(VOC_SECONDS),)), ("new/n", (9.3,))]:
+            for i, s in enumerate(secs):
+                path = root / f"{name}{i}.wav"
+                save_wav(path, synth_audio(rng, s), SR)
+                lengths[path.name] = len(load_wav(path)[0])
+
+        def run(wav_dir, out_dir):
+            return infer_main(["--config", VOC_CONFIG, "--checkpoint_path", ckpt,
+                               "--output_dir", str(root / out_dir), "--mode", "from_audio",
+                               "--audio_dir", str(root / wav_dir)])
+
+        t0 = time.perf_counter()
+        run("warm", "out_warm")
+        log(f"vocoder: full-width BigVGAN ({n_params / 1e6:.2f} M params, float32, "
+            f"use_pallas_act) warm-up file in {time.perf_counter() - t0:.2f} s")
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        records = run("wav", "out")
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = len(VOC_SECONDS)
+        check("vocoder files", len(records) == n, f"{len(records)} written (want {n})")
+        for r in records:
+            wav, sr = load_wav(r["path"])
+            want = lengths[Path(r["path"]).name] // HOP * HOP
+            check(f"vocoder {Path(r['path']).name}", sr == SR and r["samples"] == want
+                  and wav.shape == (want,) and np.isfinite(wav).all() and np.abs(wav).max() > 0,
+                  f"{r['samples']} samples (want {want}), finite")
+        want = {name: 0 for name in kernels}
+        want.update(aa_snake=AA_PER_FORWARD * n, mel=n)
+        check("vocoder launches", launches == want,
+              f"{launches} (predicted {want}: {AA_PER_FORWARD} activations and 1 mel per file)")
+        audio_s = sum(r["samples"] for r in records) / SR
+        synth_s = sum(r["seconds"] for r in records)
+        perf = {"files": n, "audio_s_out": audio_s, "main_wall_s": wall,
+                "synthesis_s": synth_s, "audio_s_per_s": audio_s / synth_s,
+                "audio_s_per_s_with_load": audio_s / wall,
+                "latency_s": {Path(r["path"]).name: r["seconds"] for r in records},
+                "max_memory_allocated_gib": peak}
+        log("vocoder perf: " + json.dumps(perf))
+
+        # the same six files again: every input shape now has its cuDNN plans
+        again = run("wav", "out_again")
+        synth2 = sum(r["seconds"] for r in again)
+        perf2 = {"synthesis_s": synth2, "audio_s_per_s": audio_s / synth2,
+                 "latency_s": {Path(r["path"]).name: r["seconds"] for r in again}}
+        log("vocoder perf, second pass over the same files: " + json.dumps(perf2))
+
+        # one file under the profiler, through `synthesize_file` with the
+        # generator restored as `main` restores it: first at a length the
+        # runs above planned (10 s), then at a new one
+        mel_cfg = MelConfig.from_preprocess_cfg(cfg["preprocess"])
+        gen_r = restore_generator(cfg, ckpt, mel_cfg.n_mel, torch.device(DEV))[0]
+        trace = {}
+        for label, wav in (("seen_length", root / "ten" / "t0.wav"),
+                           ("new_length", root / "new" / "n0.wav")):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                synthesize_file(gen_r, wav, mel_cfg, root / f"prof_{label}.wav", DEV)
+                torch.cuda.synchronize()
+                file_s = time.perf_counter() - t0
+            groups = {name: 0.0 for name, _ in VOC_GROUPS}
+            groups.update(conv=0.0, other=0.0)
+            by_name, n_rec = device_us_by_name(prof)
+            for name, us in by_name.items():
+                group = next((gname for gname, pat in VOC_GROUPS if pat in name), None)
+                if group is None:
+                    group = "conv" if any(t in name.lower() for t in CONV_NAMES) else "other"
+                groups[group] += us
+            busy = sum(groups.values()) / 1e6
+            top = sorted(((us, nm[:80]) for nm, us in by_name.items()), reverse=True)
+            trace[label] = {
+                "audio_s": lengths[wav.name] / SR, "file_s": file_s, "device_busy_s": busy,
+                "device_busy_share": busy / file_s, "device_records": n_rec,
+                "by_group_s": {k: v / 1e6 for k, v in groups.items()},
+                "top_kernels_ms": [[nm, us / 1e3] for us, nm in top[:8]]}
+        log("vocoder trace (profiled files): " + json.dumps(trace))
+
+        # one batched forward at the egs training shape, fused and unfused
+        mel16 = torch.randn((16, 64, 80), generator=torch.Generator(DEV).manual_seed(seed),
+                            device=DEV)
+        plain = dataclasses.replace(gen.cfg, use_pallas_act=False)
+        gen_chain = type(gen)(plain).to(DEV).eval()
+        gen_chain.load_state_dict(gen.state_dict())
+        with torch.no_grad():
+            kernels["aa_snake"].reset()
+            fused = gen(mel16)
+            torch.cuda.synchronize()
+            per_fwd = kernels["aa_snake"].launches
+            chain = gen_chain(mel16)
+            diff = (fused - chain).abs().max().item()
+            f_ms = gpu_ms(lambda: gen(mel16), iters=10)
+            c_ms = gpu_ms(lambda: gen_chain(mel16), iters=10)
+        check("vocoder batched forward", per_fwd == AA_PER_FORWARD and fused.shape == (16, 64 * HOP)
+              and bool(torch.isfinite(fused).all()),
+              f"{per_fwd} kernel-2 launches (want {AA_PER_FORWARD}), shape {tuple(fused.shape)}; "
+              f"fused vs unfused max|diff| {diff:.3g} (edge pads differ)")
+        batch = {"fused_ms": f_ms, "unfused_ms": c_ms, "fused_vs_unfused_max_diff": diff,
+                 "audio_s_per_s_fused": 16 * 64 * HOP / SR / (f_ms / 1e3)}
+        log(f"vocoder batched forward (16, 64, 80) ({nvidia_smi()}): " + json.dumps(batch))
+        return {"launches": launches, "perf": perf, "perf2": perf2, "trace": trace,
+                "batch": batch}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
+    """Kernels 1 and 2 at the AMP shapes of the egs training batch, float32.
+
+    Kernel 2 (with its unfused chain through cuDNN as the nearest library
+    figure: no single PyTorch call computes it) per shape, and the mean per
+    launch over one forward's 73. Kernel 1 is driven on its own through
+    ``Snake(use_pallas=True)``, forward and backward once at each shape (no
+    model path runs it; the counts are reset before and read after), then
+    timed per shape. Bounds: bytes (x read, out written; kernel 1's backward
+    also g) over 3.35 TB/s, or the operations of AA_OPS / SNAKE_OPS /
+    SNAKE_BWD_OPS per element over 67 TFLOP/s float32, the larger."""
+    from amphion_tpu_torch.modules.activations import Snake
+    from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+
+    g = torch.Generator(DEV).manual_seed(53)
+    per_shape = {"aa_snake": [], "snake": [], "snake_bwd": []}
+    snake_k = kernels["snake"]
+    snake_k.reset()
+    for b, t, c in AMP_SHAPES:
+        m = Snake(c, use_pallas=True).to(DEV)
+        x = torch.randn((b, t, c), generator=g, device=DEV, requires_grad=True)
+        m(x).backward(torch.randn((b, t, c), generator=g, device=DEV))
+    torch.cuda.synchronize()
+    driven = dict(snake_k.tagged)
+    check("snake launches through Snake(use_pallas=True)",
+          driven == {"fwd": len(AMP_SHAPES), "bwd": len(AMP_SHAPES)},
+          f"{driven} (want one forward and one backward at each of {len(AMP_SHAPES)} shapes)")
+
+    for b, t, c in AMP_SHAPES:
+        n = b * t * c
+        x = torch.randn((b, t, c), generator=g, device=DEV) * 3
+        gout = torch.randn((b, t, c), generator=g, device=DEV)
+        alpha, beta = (torch.rand((c,), generator=g, device=DEV) + 0.5 for _ in range(2))
+        with torch.no_grad():
+            aa = (gpu_ms(lambda: aa_mod.aa_snakebeta(x, alpha, beta)),
+                  gpu_ms(lambda: aa_mod.aa_snakebeta_ref(x, alpha, beta), iters=5),
+                  gpu_ms(lambda: aa_mod.aa_snakebeta_chain(x, alpha, beta)))
+            fw = (gpu_ms(lambda: snake_mod.snake(x, alpha)),
+                  gpu_ms(lambda: snake_mod.snake_ref(x, alpha)))
+            bw = (gpu_ms(lambda: snake_mod.snake_bwd(x, alpha, gout)),
+                  gpu_ms(lambda: snake_mod.snake_bwd_ref(x, alpha, gout)))
+        for key, (k_ms, p_ms, *lib), ops, nbytes in (
+                ("aa_snake", aa, AA_OPS * n, 8.0 * n + 8 * c + 112),
+                ("snake", fw, SNAKE_OPS * n, 8.0 * n + 4 * c),
+                ("snake_bwd", bw, SNAKE_BWD_OPS * n, 12.0 * n + 8 * c)):
+            t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM
+            per_shape[key].append({
+                "shape": [b, t, c], "ms": k_ms, "plain_ms": p_ms,
+                "library_ms": lib[0] if lib else None,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    card = nvidia_smi()
+    for key, rows in per_shape.items():
+        log(f"timing {key} ({card}), float32 per shape: " + json.dumps(rows))
+
+    def mean(rows, field, weights):
+        vals = [r[field] for r in rows]
+        return None if None in vals else sum(a * v for a, v in zip(weights, vals)) / sum(weights)
+
+    out = []
+    out = []
+    for key, src, line, launches, extra in (
+            ("aa_snake", "aa_snake.cu", 270, voc["launches"]["aa_snake"],
+             {"library": "the unfused chain: depthwise conv_transpose1d (cuDNN), torch.sin, "
+                         "depthwise conv1d (cuDNN), float32",
+              "ms_is": "mean per launch over one forward's 73 at the egs training shapes",
+              "per_file_launches": AA_PER_FORWARD}),
+            ("snake", "snake.cu", 40, driven.get("fwd", 0), {}),
+            ("snake_bwd", "snake.cu", 47, driven.get("bwd", 0), {})):
+        rows = per_shape[key]
+        weights = AMP_LAUNCHES if key == "aa_snake" else [1] * len(rows)
+        if key != "aa_snake":
+            extra = {"ms_is": "mean over the four AMP shapes", "via": "pallas_kernels.py:78",
+                     "launches_are": "Snake(use_pallas=True) forward and backward once at each "
+                                     "AMP shape; no model path runs kernel 1",
+                     "vocoder_path_launches": voc["launches"]["snake"]}
+        by = max(("bytes", "operations"), key=lambda k: sum(r["bound_by"] == k for r in rows))
+        out.append(_row(key, src, line, launches, errs[key], mean(rows, "ms", weights),
+                        mean(rows, "plain_ms", weights), mean(rows, "bound_ms", weights), by,
+                        mean(rows, "library_ms", weights), per_shape=rows, **extra))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1479,12 +1896,14 @@ def main() -> int:
     t_start = time.perf_counter()
     from amphion_tpu_torch.ops import mel as mel_mod
     from amphion_tpu_torch.ops.kernels import _build
+    from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE
     from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
     from amphion_tpu_torch.ops.kernels.decode_attention import DECODE_ATTN
     from amphion_tpu_torch.ops.kernels.flash_attention import FLASH, FLASH_BWD
     from amphion_tpu_torch.ops.kernels.int4_matmul import INT4_MM
     from amphion_tpu_torch.ops.kernels.int8_matmul import INT8_MM
     from amphion_tpu_torch.ops.kernels.mel import MEL
+    from amphion_tpu_torch.ops.kernels.snake import SNAKE
     from amphion_tpu_torch.utils.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1496,7 +1915,7 @@ def main() -> int:
         f"{torch.version.cuda}, nvcc {nvcc!r}, card {card!r}")
     kernels = {"mel": MEL, "flash_attn_fwd": FLASH, "flash_attn_bwd": FLASH_BWD,
                "int8_matmul": INT8_MM, "int4_matmul": INT4_MM,
-               "decode_attn_int8": DECODE_ATTN}
+               "decode_attn_int8": DECODE_ATTN, "snake": SNAKE, "aa_snake": AA_SNAKE}
     t0 = time.perf_counter()
     _build.build_all(list(kernels.values()))
     log(f"build: {', '.join(k.source.name for k in kernels.values())} in "
@@ -1505,6 +1924,8 @@ def main() -> int:
     errs = kernel_phase(mel_mod, flash_mod, args.seed)
     errs.update(bwd_kernel_phase(flash_mod, args.seed))
     quant_kernel_phase(args.seed)
+    errs.update(snake_kernel_phase(args.seed))
+    vocoder_reference_phase(args.seed)
     reference_phase(args.seed)
     ar_reference_phase(args.seed)
     train_reference_phase(args.seed)
@@ -1524,6 +1945,8 @@ def main() -> int:
     bwd_row, fwd_extra = bwd_timing_phase(flash_mod, train, errs)
     next(r for r in rows if r["name"] == "flash_attn_fwd").update(fwd_extra)
     rows.append(bwd_row)
+    voc = vocoder_phase(args.seed, kernels)
+    rows += snake_timing_phase(voc, errs, kernels)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -306,3 +306,108 @@ def test_backwardless_wrappers_raise_under_grad(cuda):
     with torch.no_grad():  # the same calls run without grad
         int8_matmul(x, w_q, sc)
         mel_spectrogram(y, MelConfig())
+
+
+# -- kernels 1 and 2: Snake and the anti-aliased SnakeBeta ---------------------------
+
+SNAKE_SHAPES = [(16, 320, 256), (16, 7680, 32), (3, 1000, 96), (2, 300, 8), (1, 12, 40),
+                (1, 1, 5)]  # AMP shapes of the egs training batch, ragged T, T < 13
+
+
+def _within_one_bf16_step(out, ref):
+    o, r = out.detach().float(), ref.detach().float()
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(o.abs(), r.abs()).clamp_min(1e-30))) - 7)
+    assert bool(((o - r).abs() <= step).all())
+
+
+def _rel_err(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SNAKE_SHAPES, ids=str)
+def test_aa_snake_kernel_matches_plain(cuda, shape, dtype):
+    """Kernel 2 against the plain version of the same fused arithmetic over
+    the whole signal, edges included: float32 within 1e-5 of max|ref|,
+    bf16 within one bf16 step of the float32 result rounded."""
+    from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE, aa_snakebeta, aa_snakebeta_ref
+
+    g = torch.Generator(cuda).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    alpha, beta = (torch.rand(shape[-1], generator=g, device=cuda) * 1.5 + 0.5 for _ in range(2))
+    n = AA_SNAKE.launches
+    out = aa_snakebeta(x, alpha, beta)
+    torch.cuda.synchronize()
+    assert AA_SNAKE.launches == n + 1 and out.dtype == dtype and out.shape == x.shape
+    ref = aa_snakebeta_ref(x, alpha, beta)
+    if dtype == torch.float32:
+        assert _rel_err(out, ref) <= 1e-5
+    else:
+        _within_one_bf16_step(out, ref)
+
+
+def test_aa_snake_function_grads_match_cpu(cuda):
+    """`AASnakeBetaFn` on the card (kernel 2 forward, autograd of the
+    unfused chain through cuDNN backward) against the CPU: 1e-5 / 1e-4 of
+    max|ref| (sums over time in another order)."""
+    from amphion_tpu_torch.ops.kernels.aa_snake import AASnakeBetaFn
+
+    g = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn((2, 700, 48), generator=g, device=cuda) * 3
+    alpha, beta = (torch.rand(48, generator=g, device=cuda) + 0.5 for _ in range(2))
+    gout = torch.randn(x.shape, generator=g, device=cuda)
+    dev = [t.clone().requires_grad_() for t in (x, alpha, beta)]
+    cpu = [t.cpu().requires_grad_() for t in (x, alpha, beta)]
+    y, y_cpu = AASnakeBetaFn.apply(*dev), AASnakeBetaFn.apply(*cpu)
+    assert _rel_err(y.cpu(), y_cpu) <= 1e-5
+    for a, b in zip(torch.autograd.grad(y, dev, gout), torch.autograd.grad(y_cpu, cpu, gout.cpu())):
+        assert _rel_err(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SNAKE_SHAPES, ids=str)
+def test_snake_kernels_match_plain(cuda, shape, dtype):
+    """Kernel 1 through ``Snake(use_pallas=True)``: y and dx within 1e-5 of
+    max|ref| in float32 (one bf16 step in bf16), dalpha within 1e-5 of
+    max|ref| and bit-equal on relaunch (no atomics)."""
+    from amphion_tpu_torch.modules.activations import Snake
+    from amphion_tpu_torch.ops.kernels.snake import SNAKE, snake_bwd, snake_bwd_ref, snake_ref
+
+    g = torch.Generator(cuda).manual_seed(sum(shape) + 1)
+    m = Snake(shape[-1], use_pallas=True).to(cuda)
+    with torch.no_grad():
+        m.alpha.copy_(torch.rand(shape[-1], generator=g, device=cuda) * 1.5 + 0.5)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype).requires_grad_()
+    gout = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    before = dict(SNAKE.tagged)
+    y = m(x)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    assert SNAKE.tagged["fwd"] == before.get("fwd", 0) + 1
+    assert SNAKE.tagged["bwd"] == before.get("bwd", 0) + 1
+    a = m.alpha.detach()
+    ref_y = snake_ref(x.detach(), a)
+    ref_dx, ref_da = snake_bwd_ref(x.detach(), a, gout)
+    assert y.dtype == x.grad.dtype == dtype and m.alpha.grad.dtype == torch.float32
+    if dtype == torch.float32:
+        assert _rel_err(y, ref_y) <= 1e-5 and _rel_err(x.grad, ref_dx) <= 1e-5
+    else:
+        _within_one_bf16_step(y, ref_y)
+        _within_one_bf16_step(x.grad, ref_dx)
+    assert _rel_err(m.alpha.grad, ref_da) <= 1e-5
+    _, da = snake_bwd(x.detach(), a, gout)
+    assert torch.equal(da, m.alpha.grad)
+
+
+def test_snake_wrappers_raise_under_grad(cuda):
+    """The wrappers themselves have no backward: under grad they raise
+    (`SnakeFn` and `AASnakeBetaFn` are the differentiable entries)."""
+    from amphion_tpu_torch.ops.kernels.aa_snake import aa_snakebeta
+    from amphion_tpu_torch.ops.kernels.snake import snake
+
+    x = torch.randn((1, 16, 8), device=cuda, requires_grad=True)
+    a = torch.ones(8, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        snake(x, a)
+    with pytest.raises(RuntimeError, match="no backward"):
+        aa_snakebeta(x, a, a)
