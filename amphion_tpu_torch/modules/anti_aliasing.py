@@ -61,10 +61,18 @@ def down_filter(ratio: int = 2, kernel_size: int | None = None) -> np.ndarray:
     return kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, k)
 
 
-def _depthwise(f: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    """The filter as a (C, 1, k) depthwise weight for (B, C, T) ``x``."""
-    w = torch.from_numpy(f).to(device=x.device, dtype=x.dtype)
-    return w[None, None].expand(x.shape[1], 1, f.shape[0])
+@functools.lru_cache(maxsize=32)
+def _filter_tensor(up: bool, ratio: int, kernel_size: int | None, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    f = up_filter(ratio, kernel_size) if up else down_filter(ratio, kernel_size)
+    return torch.from_numpy(f).to(device=device, dtype=dtype)[None, None]
+
+
+def _depthwise(up: bool, ratio: int, kernel_size: int | None, x: torch.Tensor) -> torch.Tensor:
+    """The filter as a (C, 1, k) depthwise weight for (B, C, T) ``x``, kept on
+    x's device (no copy from the host per call)."""
+    w = _filter_tensor(up, ratio, kernel_size, x.device, x.dtype)
+    return w.expand(x.shape[1], 1, w.shape[-1])
 
 
 def upsample1d(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None) -> torch.Tensor:
@@ -78,7 +86,8 @@ def upsample1d(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None) 
     xs = F.pad(x.transpose(1, 2), (pad, pad), mode="replicate")
     # the filter is symmetric, so torch's transposed convolution (which
     # flips it) equals lax.conv_transpose's, which does not
-    y = F.conv_transpose1d(xs, _depthwise(f, xs), stride=r, groups=xs.shape[1])
+    y = F.conv_transpose1d(xs, _depthwise(True, r, kernel_size, xs), stride=r,
+                           groups=xs.shape[1])
     return y[:, :, pad_left: pad_left + t_in * r].transpose(1, 2)
 
 
@@ -90,7 +99,7 @@ def downsample1d(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None
     pad_left = (k - r) // 2
     pad_right = k - r - pad_left
     xs = F.pad(x.transpose(1, 2), (pad_left, pad_right), mode="replicate")
-    y = F.conv1d(xs, _depthwise(f, xs), stride=r, groups=xs.shape[1])
+    y = F.conv1d(xs, _depthwise(False, r, kernel_size, xs), stride=r, groups=xs.shape[1])
     return y.transpose(1, 2)
 
 
