@@ -65,7 +65,11 @@ def restore_generator(cfg: dict, checkpoint: str | Path, n_mel: int, device: tor
     latest), on ``device`` in eval mode → (generator, hop, epoch, step)."""
     gen, hop = build_generator(cfg, n_mel)
     state, epoch, step = CheckpointManager(checkpoint).restore_raw(map_location=device)
-    gen.load_state_dict(state["g"]["model"] if "g" in state else state["model"])
+    if "g" not in state:
+        raise KeyError(
+            f"{checkpoint} is not a vocoder checkpoint: its state.pt has no 'g' entry "
+            f"(keys {sorted(state)}); save_generator writes {{'g': {{'model': ...}}}}")
+    gen.load_state_dict(state["g"]["model"])
     return gen.to(device).eval(), hop, epoch, step
 
 

@@ -31,7 +31,9 @@ at the full width of ``config/vevo.json`` with random weights from
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
 plain versions on the inputs the voice paths gave them (decode, AR prefill
-and flow-matching rows, with and without the RMSNorm prologue). It then
+and flow-matching rows, with and without the RMSNorm prologue) and the
+anti-aliased SnakeBeta kernel on the inputs of one 10 s file's 73
+activations. It then
 measures what padding each voice decode to ``max_batch`` rows costs and
 which PyTorch operations make the padding necessary, times each kernel at
 the shapes the paths gave it, and profiles one voice batch, two steps of
@@ -111,18 +113,31 @@ def gpu_ms(fn, iters: int = 20) -> float:
 
 
 def graph_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn()`` replayed as one CUDA graph (the host's
-    launch overhead taken out), by CUDA events after warm-up."""
+    """Mean device time of one ``fn()``, the host's launch overhead taken
+    out: ``fn`` is captured ``reps`` times in one CUDA graph, with ``reps``
+    (at most 64) chosen so that a replay lasts at least 1 ms and so hides
+    the host's cost of launching the next, the graph is replayed ``iters``
+    times after warm-up, timed by CUDA events, and the mean replay is
+    divided by ``reps``."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return gpu_ms(graph.replay, iters)
+
+    def captured(reps: int):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        return graph
+
+    one = captured(1)
+    est = gpu_ms(one.replay, 5)  # an upper bound: a lone replay may wait on the host
+    del one
+    reps = max(1, min(64, math.ceil(1.0 / max(est, 1e-4))))
+    return gpu_ms(captured(reps).replay, iters) / reps
 
 
 def check(name: str, ok: bool, detail: str) -> None:
@@ -1603,6 +1618,70 @@ def snake_kernel_phase(seed: int) -> dict:
     return errs
 
 
+class AARecorder:
+    """While installed, records every call of kernel 2's wrapper
+    (`aa_snakebeta`, which `AASnakeBetaFn` looks up by its module-level
+    name at each call): the inputs the path gave it and the output it got."""
+
+    def __init__(self):
+        from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
+
+        self.mod, self.wrapped, self.calls = aa_mod, aa_mod.aa_snakebeta, []
+        aa_mod.aa_snakebeta = self
+
+    def __call__(self, x, alpha, beta):
+        out = self.wrapped(x, alpha, beta)
+        self.calls.append((x.clone(), alpha.clone(), beta.clone(), out.clone()))
+        return out
+
+    def remove(self) -> None:
+        self.mod.aa_snakebeta = self.wrapped
+
+
+def aa_file_shapes(gcfg, frames: int) -> list:
+    """(B, T, C) of kernel 2's launches, in order, for one file of
+    ``frames`` mel frames at batch 1: each stage's AMP blocks (2 per
+    dilation), then the final activation at the last stage's shape."""
+    shapes, t = [], frames
+    per_stage = 2 * sum(len(d) for d in gcfg.resblock_dilation_sizes)
+    for i, r in enumerate(gcfg.upsample_rates):
+        t *= r
+        shapes += [(1, t, gcfg.upsample_initial_channel // 2 ** (i + 1))] * per_stage
+    return shapes + shapes[-1:]
+
+
+def aa_path_check(calls: list, want_shapes: list) -> dict:
+    """Kernel 2 on what one full-width file gave it: the launches' shapes in
+    the order worked out beforehand, and each launch's own output within
+    1e-5 of max|ref| of `aa_snakebeta_ref` on its own input (float32, the
+    whole signal). Returns the largest error and, for the timing phase, the
+    first input of each shape with that shape's launch count."""
+    from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
+
+    shapes = [tuple(c[0].shape) for c in calls]
+    check("aa_snake on the path: launches of one 10 s file", shapes == want_shapes,
+          f"{len(shapes)} launches at {sorted(set(shapes))} (want {len(want_shapes)} in the "
+          "order of the generator's activations)")
+    worst, worst_rel, reps = 0.0, 0.0, {}
+    for x, alpha, beta, out in calls:
+        ref = aa_mod.aa_snakebeta_ref(x, alpha, beta)
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if err > 1e-5 * scale or out.dtype != torch.float32:
+            check(f"aa_snake on the path {tuple(x.shape)}", False,
+                  f"{out.dtype}, max|err| {err:.3g} (tol 1e-5 of {scale:.3g})")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        shape = tuple(x.shape)
+        if shape not in reps:
+            reps[shape] = [(x, alpha, beta), 0]
+        reps[shape][1] += 1
+    check("aa_snake on the path: every launch against its plain version", True,
+          f"{len(calls)} launches, max|err| {worst:.3g}, at most {worst_rel:.3g} of max|ref| "
+          "(tol 1e-5)")
+    return {"max_abs_err": worst, "max_rel_err": worst_rel,
+            "inputs": {k: tuple(v) for k, v in reps.items()}}
+
+
 def perturb_generator(gen, seed: int) -> None:
     """Random weight-norm scales, biases and log-scale Snake parameters, so
     a generator drawn by `init_like_flax` (scales 1, biases and log alpha 0)
@@ -1655,9 +1734,11 @@ def vocoder_phase(seed: int, kernels: dict) -> dict:
     files of 2-10 s. Checks each wav (finite, floor(T/120)*120 samples) and
     the launch counts worked out beforehand (kernel 2: 73 per file, kernel
     3: 1 per file, no other). Then it runs the six files again (each length
-    now seen: cuDNN has its plans), profiles one file at a seen length and
-    one at a new length, and times one batched forward at the egs training
-    shape (16 x 64 frames), fused and unfused."""
+    now seen: cuDNN has its plans), runs the 10 s file once more with
+    kernel 2's calls recorded and holds each of its 73 launches against the
+    plain version on its own input (`aa_path_check`), profiles one file at
+    a seen length and one at a new length, and times one batched forward at
+    the egs training shape (16 x 64 frames), fused and unfused."""
     import dataclasses
     import shutil
     import tempfile
@@ -1741,6 +1822,19 @@ def vocoder_phase(seed: int, kernels: dict) -> dict:
                  "latency_s": {Path(r["path"]).name: r["seconds"] for r in again}}
         log("vocoder perf, second pass over the same files: " + json.dumps(perf2))
 
+        # the 10 s file once more through the CLI, kernel 2's calls recorded:
+        # every launch against its plain version on the input the path gave it
+        rec = AARecorder()
+        try:
+            run("ten", "out_rec")
+        finally:
+            rec.remove()
+        frames = lengths["t0.wav"] // HOP
+        aa_path = aa_path_check(rec.calls, aa_file_shapes(gen.cfg, frames))
+        aa_path["frames"] = frames
+        del rec
+        torch.cuda.empty_cache()
+
         # one file under the profiler, through `synthesize_file` with the
         # generator restored as `main` restores it: first at a length the
         # runs above planned (10 s), then at a new one
@@ -1799,31 +1893,33 @@ def vocoder_phase(seed: int, kernels: dict) -> dict:
                  "audio_s_per_s_fused": 16 * 64 * HOP / SR / (f_ms / 1e3)}
         log(f"vocoder batched forward (16, 64, 80) ({nvidia_smi()}): " + json.dumps(batch))
         return {"launches": launches, "perf": perf, "perf2": perf2, "trace": trace,
-                "batch": batch}
+                "batch": batch, "aa_path": aa_path}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
-    """Kernels 1 and 2 at the AMP shapes of the egs training batch, float32.
+    """Kernels 1 and 2, float32.
 
-    Kernel 2 per shape, and the mean per launch over one forward's 73; no
-    single PyTorch call computes it, so ``library_ms`` is null and its
-    unfused chain through cuDNN stands beside it as the nearest library
-    figure (``unfused_chain_ms``). Kernel 1 is driven on its own through
-    ``Snake(use_pallas=True)``, forward and backward once at each shape (no
-    model path runs it; the counts are reset before and read after), then
-    timed per shape. Every time is the device time of a CUDA-graph replay:
-    launched one by one from Python, kernels this small wait on the host.
-    Bounds: bytes (x read, out written; kernel 1's backward
-    also g) over 3.35 TB/s, or the operations of AA_OPS / SNAKE_OPS /
-    SNAKE_BWD_OPS per element over 67 TFLOP/s float32, the larger."""
+    Kernel 2 at the shapes one 10 s file gave it through the CLI (batch 1;
+    the inputs `aa_path_check` kept, one per shape), the row's times the
+    mean per launch over the file's 73; again at the egs training batch's
+    AMP shapes as an extra. No single PyTorch call computes it, so
+    ``library_ms`` is null and its unfused chain through cuDNN stands
+    beside it as the nearest library figure (``unfused_chain_ms``). Kernel
+    1 is driven on its own through ``Snake(use_pallas=True)``, forward and
+    backward once at each AMP shape (no model path runs it; the counts are
+    reset before and read after), then timed per shape. Every time is the
+    device time of a CUDA-graph replay of many calls (`graph_ms`): launched
+    one by one from Python, kernels this small wait on the host. Bounds:
+    bytes (x read, out written; kernel 1's backward also g) over 3.35 TB/s,
+    or the operations of AA_OPS / SNAKE_OPS / SNAKE_BWD_OPS per element
+    over 67 TFLOP/s float32, the larger."""
     from amphion_tpu_torch.modules.activations import Snake
     from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
     from amphion_tpu_torch.ops.kernels import snake as snake_mod
 
     g = torch.Generator(DEV).manual_seed(53)
-    per_shape = {"aa_snake": [], "snake": [], "snake_bwd": []}
     snake_k = kernels["snake"]
     snake_k.reset()
     for b, t, c in AMP_SHAPES:
@@ -1836,29 +1932,43 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
           driven == {"fwd": len(AMP_SHAPES), "bwd": len(AMP_SHAPES)},
           f"{driven} (want one forward and one backward at each of {len(AMP_SHAPES)} shapes)")
 
+    def row(shape, times, ops, nbytes):
+        k_ms, p_ms, *lib = times
+        t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM
+        return {"shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                **({"unfused_chain_ms": lib[0]} if lib else {})}
+
+    def aa_times(x, alpha, beta):
+        return (graph_ms(lambda: aa_mod.aa_snakebeta(x, alpha, beta)),
+                graph_ms(lambda: aa_mod.aa_snakebeta_ref(x, alpha, beta), iters=5),
+                graph_ms(lambda: aa_mod.aa_snakebeta_chain(x, alpha, beta)))
+
+    def aa_bytes(b, t, c):
+        return 8.0 * b * t * c + 8 * c + 112  # x, out, alpha, beta, taps
+
+    per_shape = {"aa_snake": [], "aa_snake_training": [], "snake": [], "snake_bwd": []}
+    path = voc["aa_path"]
+    with torch.no_grad():
+        for shape, ((x, alpha, beta), _) in path["inputs"].items():
+            per_shape["aa_snake"].append(row(shape, aa_times(x, alpha, beta),
+                                             AA_OPS * x.numel(), aa_bytes(*shape)))
     for b, t, c in AMP_SHAPES:
         n = b * t * c
         x = torch.randn((b, t, c), generator=g, device=DEV) * 3
         gout = torch.randn((b, t, c), generator=g, device=DEV)
         alpha, beta = (torch.rand((c,), generator=g, device=DEV) + 0.5 for _ in range(2))
         with torch.no_grad():
-            aa = (graph_ms(lambda: aa_mod.aa_snakebeta(x, alpha, beta)),
-                  graph_ms(lambda: aa_mod.aa_snakebeta_ref(x, alpha, beta), iters=5),
-                  graph_ms(lambda: aa_mod.aa_snakebeta_chain(x, alpha, beta)))
-            fw = (graph_ms(lambda: snake_mod.snake(x, alpha)),
-                  graph_ms(lambda: snake_mod.snake_ref(x, alpha)))
-            bw = (graph_ms(lambda: snake_mod.snake_bwd(x, alpha, gout)),
-                  graph_ms(lambda: snake_mod.snake_bwd_ref(x, alpha, gout)))
-        for key, (k_ms, p_ms, *lib), ops, nbytes in (
-                ("aa_snake", aa, AA_OPS * n, 8.0 * n + 8 * c + 112),
-                ("snake", fw, SNAKE_OPS * n, 8.0 * n + 4 * c),
-                ("snake_bwd", bw, SNAKE_BWD_OPS * n, 12.0 * n + 8 * c)):
-            t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM
-            per_shape[key].append({
-                "shape": [b, t, c], "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                **({"unfused_chain_ms": lib[0]} if lib else {})})
+            per_shape["aa_snake_training"].append(row((b, t, c), aa_times(x, alpha, beta),
+                                                      AA_OPS * n, aa_bytes(b, t, c)))
+            per_shape["snake"].append(row((b, t, c), (
+                graph_ms(lambda: snake_mod.snake(x, alpha)),
+                graph_ms(lambda: snake_mod.snake_ref(x, alpha))), SNAKE_OPS * n, 8.0 * n + 4 * c))
+            per_shape["snake_bwd"].append(row((b, t, c), (
+                graph_ms(lambda: snake_mod.snake_bwd(x, alpha, gout)),
+                graph_ms(lambda: snake_mod.snake_bwd_ref(x, alpha, gout))),
+                SNAKE_BWD_OPS * n, 12.0 * n + 8 * c))
     card = nvidia_smi()
     for key, rows in per_shape.items():
         log(f"timing {key} ({card}), float32 per shape: " + json.dumps(rows))
@@ -1867,27 +1977,40 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
         vals = [r[field] for r in rows]
         return None if None in vals else sum(a * v for a, v in zip(weights, vals)) / sum(weights)
 
-    out = []
-    for key, src, line, launches, extra in (
-            ("aa_snake", "aa_snake.cu", 270, voc["launches"]["aa_snake"],
-             {"unfused_chain_ms": mean(per_shape["aa_snake"], "unfused_chain_ms", AMP_LAUNCHES),
-              "unfused_chain": "depthwise conv_transpose1d (cuDNN), torch.sin, depthwise "
-                               "conv1d (cuDNN), float32",
-              "ms_is": "mean per launch over one forward's 73 at the egs training shapes",
-              "per_file_launches": AA_PER_FORWARD}),
-            ("snake", "snake.cu", 40, driven.get("fwd", 0), {}),
-            ("snake_bwd", "snake.cu", 47, driven.get("bwd", 0), {})):
+    def by(rows):
+        return max(("bytes", "operations"), key=lambda k: sum(r["bound_by"] == k for r in rows))
+
+    path_w = [n for _, n in path["inputs"].values()]
+    train = per_shape["aa_snake_training"]
+    aa = per_shape["aa_snake"]
+    out = [_row("aa_snake", "aa_snake.cu", 270, voc["launches"]["aa_snake"], path["max_abs_err"],
+                mean(aa, "ms", path_w), mean(aa, "plain_ms", path_w),
+                mean(aa, "bound_ms", path_w), by(aa), None,
+                unfused_chain_ms=mean(aa, "unfused_chain_ms", path_w),
+                unfused_chain="depthwise conv_transpose1d (cuDNN), torch.sin, depthwise "
+                              "conv1d (cuDNN), float32",
+                ms_is=f"mean per launch over the 73 of one {path['frames']}-frame (10 s) "
+                      "file through the CLI, batch 1, at the inputs the path gave",
+                max_rel_err=path["max_rel_err"],
+                max_abs_err_random_inputs=errs["aa_snake"],
+                per_file_launches=AA_PER_FORWARD, per_shape=aa,
+                training_batch={"ms": mean(train, "ms", AMP_LAUNCHES),
+                                "plain_ms": mean(train, "plain_ms", AMP_LAUNCHES),
+                                "bound_ms": mean(train, "bound_ms", AMP_LAUNCHES),
+                                "unfused_chain_ms": mean(train, "unfused_chain_ms", AMP_LAUNCHES),
+                                "ms_is": "mean per launch over one forward's 73 at the egs "
+                                         "training batch (16 x 64 frames)",
+                                "per_shape": train})]
+    for key, line, tag in (("snake", 40, "fwd"), ("snake_bwd", 47, "bwd")):
         rows = per_shape[key]
-        weights = AMP_LAUNCHES if key == "aa_snake" else [1] * len(rows)
-        if key != "aa_snake":
-            extra = {"ms_is": "mean over the four AMP shapes", "via": "pallas_kernels.py:78",
-                     "launches_are": "Snake(use_pallas=True) forward and backward once at each "
+        w = [1] * len(rows)
+        out.append(_row(key, "snake.cu", line, driven.get(tag, 0), errs[key],
+                        mean(rows, "ms", w), mean(rows, "plain_ms", w), mean(rows, "bound_ms", w),
+                        by(rows), None, per_shape=rows, ms_is="mean over the four AMP shapes",
+                        via="pallas_kernels.py:78",
+                        launches_are="Snake(use_pallas=True) forward and backward once at each "
                                      "AMP shape; no model path runs kernel 1",
-                     "vocoder_path_launches": voc["launches"]["snake"]}
-        by = max(("bytes", "operations"), key=lambda k: sum(r["bound_by"] == k for r in rows))
-        out.append(_row(key, src, line, launches, errs[key], mean(rows, "ms", weights),
-                        mean(rows, "plain_ms", weights), mean(rows, "bound_ms", weights), by,
-                        None, per_shape=rows, **extra))
+                        vocoder_path_launches=voc["launches"]["snake"]))
     return out
 
 

@@ -37,7 +37,13 @@ from amphion_tpu_torch.data.metadata import Utterance, save_metadata
 from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
 from amphion_tpu_torch.modules.activations import SnakeBeta
 from amphion_tpu_torch.modules.weight_norm import WNConv1d, WNConvTranspose1d
-from amphion_tpu_torch.runtime.vocoder_trainer import build_generator, load_vocoder, save_generator
+from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+from amphion_tpu_torch.runtime.vocoder_trainer import (
+    build_generator,
+    load_vocoder,
+    restore_generator,
+    save_generator,
+)
 from amphion_tpu_torch.utils.config import load_config
 from amphion_tpu_torch.utils.convert import from_flax, init_like_flax
 
@@ -129,40 +135,65 @@ class _JWN(fnn.Module):
         return fnn.WeightNorm(conv)(x)
 
 
-@pytest.mark.parametrize("k,r,d", [(10, 5, 1), (8, 4, 1), (6, 3, 1), (4, 2, 1),
-                                   (11, 0, 5), (7, 0, 1)])
-def test_weight_norm_convs_match_flax(k, r, d):
-    cin, cout, t = 6, 5, 13
-    jm = _JWN(cout, k, r, d)
-    x = np.random.default_rng(k * 10 + r).standard_normal((2, t, cin)).astype(np.float32)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, t, cin)))["params"]
-    tree = jax.tree_util.tree_map(np.asarray, _fill(shapes, seed=k + r))
-    ref = np.asarray(jax.jit(lambda x: jm.apply({"params": tree}, x))(jnp.asarray(x)))
+WN_CASES = [(10, 5, 1), (8, 4, 1), (6, 3, 1), (4, 2, 1), (11, 0, 5), (7, 0, 1)]
+WN_CIN, WN_COUT, WN_T = 6, 5, 13
+
+
+class _JWNAll(fnn.Module):
+    """Every case of `WN_CASES`, one child each, so that one jitted apply
+    serves them all."""
+
+    @fnn.compact
+    def __call__(self, xs):
+        return [_JWN(WN_COUT, k, r, d, name=f"case_{i}")(x)
+                for i, ((k, r, d), x) in enumerate(zip(WN_CASES, xs))]
+
+
+@functools.lru_cache(maxsize=1)
+def _wn_flax():
+    """(Flax tree, inputs, outputs) of every weight-norm case, from one
+    jitted apply."""
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((2, WN_T, WN_CIN)).astype(np.float32) for _ in WN_CASES]
+    jm = _JWNAll()
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            [jnp.zeros((1, WN_T, WN_CIN))] * len(WN_CASES))["params"]
+    tree = jax.tree_util.tree_map(np.asarray, _fill(shapes, seed=6))
+    refs = jax.jit(lambda xs: jm.apply({"params": tree}, xs))([jnp.asarray(x) for x in xs])
+    return tree, xs, [np.asarray(r) for r in refs]
+
+
+@pytest.mark.parametrize("case", range(len(WN_CASES)),
+                         ids=[f"{k}-{r}-{d}" for k, r, d in WN_CASES])
+def test_weight_norm_convs_match_flax(case):
+    k, r, d = WN_CASES[case]
+    tree, xs, refs = _wn_flax()
     holder = nn.Module()
     if r:
-        holder.ConvTranspose_0 = WNConvTranspose1d(cin, cout, k, r)
+        holder.ConvTranspose_0 = WNConvTranspose1d(WN_CIN, WN_COUT, k, r)
     else:
-        holder.Conv_0 = WNConv1d(cin, cout, k, d)
-    from_flax(holder, tree)
+        holder.Conv_0 = WNConv1d(WN_CIN, WN_COUT, k, d)
+    from_flax(holder, tree[f"case_{case}"])
     with torch.no_grad():
-        out = next(holder.children())(torch.from_numpy(x)).numpy()
-    assert out.shape == ref.shape == (2, t * (r or 1), cout)
-    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+        out = next(holder.children())(torch.from_numpy(xs[case])).numpy()
+    assert out.shape == refs[case].shape == (2, WN_T * (r or 1), WN_COUT)
+    np.testing.assert_allclose(out, refs[case], rtol=0, atol=1e-5)
 
 
 def test_init_like_flax_follows_flax_fan_in():
-    """The egs generator's first two upsampling stages at a quarter of its
+    """The egs generator's first two upsampling stages at an eighth of its
     width, one AMP block each: every weight-normalised kernel drawn with
     Flax's fan-in (the product of the Flax kernel's shape but its last
     axis, so in·k for the ConvTranspose too), biases 0, scales 1, log-scale
     SnakeBeta α and β 0."""
     cfg = dataclasses.replace(build_generator(load_config(EGS), 80)[0].cfg,
                               upsample_rates=(5, 4), upsample_kernel_sizes=(10, 8),
-                              upsample_initial_channel=128, resblock_kernel_sizes=(7,),
+                              upsample_initial_channel=64, resblock_kernel_sizes=(7,),
                               resblock_dilation_sizes=((1, 3),))
     shapes = jax.eval_shape(JBigVGAN(JBigVGANConfig(**{**cfg.__dict__, "use_pallas_act": False})).init,
                             jax.random.PRNGKey(0), jnp.zeros((1, 4, 80)))["params"]
     gen = init_like_flax(BigVGANGenerator(cfg), torch.Generator().manual_seed(0))
+    sized = set()  # kinds whose std was held to Flax's fan-in
     for name, mod in gen.named_modules():
         if isinstance(mod, (WNConv1d, WNConvTranspose1d)):
             node = shapes
@@ -172,9 +203,11 @@ def test_init_like_flax_follows_flax_fan_in():
             std = mod.weight.detach().std().item() * fan_in ** 0.5
             if mod.weight.numel() >= 10000:
                 assert abs(std - 1.0) < 0.05, (name, std)
+                sized.add(type(mod))
             assert torch.all(mod.bias == 0) and torch.all(mod.scale == 1)
         elif isinstance(mod, SnakeBeta):
             assert torch.all(mod.alpha == 0) and torch.all(mod.beta == 0)
+    assert sized == {WNConv1d, WNConvTranspose1d}
 
 
 @pytest.fixture(scope="module")
@@ -265,6 +298,23 @@ def test_entry_points_raise_without_a_card(cli_run, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_vocoder(ckpt, 80, str(cfg))
     assert not (root / "never").exists()
+
+
+def test_restore_generator_takes_only_the_vocoder_layout(cli_run):
+    """A checkpoint without the ``{"g": ...}`` entry is refused, not read
+    in some other layout."""
+    root, ckpt, cfg, _ = cli_run
+    port = _tiny(True)[2]
+
+    class Flat:
+        def state_dict(self):
+            return {"model": port.state_dict()}
+
+    flat = CheckpointManager(root / "flat").save(Flat(), 0, 0, 0.0)
+    with pytest.raises(KeyError, match="no 'g' entry"):
+        restore_generator(load_config(cfg), flat, 80, torch.device("cpu"))
+    gen, hop, epoch, step = restore_generator(load_config(cfg), ckpt, 80, torch.device("cpu"))
+    assert (hop, epoch, step) == (15, 3, 42)
 
 
 def test_other_generators_are_not_ported():
