@@ -8,9 +8,10 @@
 //   dV = sum_q P^T dO,  dS = P * (dO V^T - Delta),
 //   dQ = scale * sum_k dS K,  dK = scale * sum_q dS^T Q,
 // with Delta = rowsum(dO * O) computed by the caller (as JAX computes it
-// outside its kernels, l.1016). Two kernels, as in JAX:
-//  * dQ: one block per (batch*head, query tile), looping over key tiles;
-//  * dK/dV: one block per (batch*kv-head, key tile), looping over query
+// outside its kernels, l.1016). Two kernels, as in JAX (in float32 both
+// run in one launch):
+//  * dQ: one block per (batch*head, 64 query rows), looping over key tiles;
+//  * dK/dV: one block per (batch*kv-head, 64 key rows), looping over query
 //    tiles and over the H/KVH query heads of its group, so the GQA sum
 //    happens in registers: no repeat of K/V and no second pass.
 // No atomics: every output element is written once by one thread, with
@@ -24,206 +25,353 @@
 // adds nothing to dK/dV.
 //
 // What bounds it on the H100: per (query, key) pair the backward does five
-// D-long dot products or updates, 10*D operations (half of the pairs when
-// causal), against q, k, v, o, dO, dq, dk, dv and the LSE read or written
-// once. At the Vevo training shapes (FM (8, 256, 16, 64), AR (8, 516, 20,
-// 64) causal) that is 5.4 and 13.7 GFLOP against 67 and 169 MB, so the
-// operations bound it: in float32 (the trainers' type) at 67 TFLOP/s about
-// 0.08 and 0.20 ms, in bf16 on the tensor cores a fifteenth of that.
-//  * float32: plain FMAs (no TF32, as the forward's f32 branch), four
-//    threads per query row (dQ) or key row (dK/dV) splitting D; the other
-//    side's tile streams through shared memory and every thread of a row
-//    group reads the same element (a broadcast).
+// D-long products (S, dP, dV, dQ, dK), 10 D operations (half of the pairs
+// when causal), against q, k, v, o, dO, dq, dk, dv and the LSE read or
+// written once. At the Vevo training shapes (FM (8, 256, 16, 64), AR
+// (8, 516, 20, 64) causal) that is 5.4 and 12.4 GFLOP against 67 and 169
+// MB, so the operations bound it: in float32 (the trainers' type) 0.080 /
+// 0.185 ms at the 67 TFLOP/s FMA rate, or 0.033 / 0.075 ms as three TF32
+// products at the 495 TFLOP/s TF32 rate; in bf16 a fifteenth of the former.
+//  * float32: every product on the tensor cores in split TF32
+//    (flash_common.cuh: x = big + small, three TF32 products per product,
+//    float32 accuracy), mma.sync m16n8k8, 4 warps of 16 rows. The rows a
+//    block owns (Q and dO for dQ, K and V for dK/dV) stay in shared memory
+//    and are split as their A fragments are loaded; the other side streams
+//    in tiles of 32 rows through two cp.async stages, and each warp splits
+//    its B fragments in registers. Every product runs over eight
+//    accumulators before the next (flash_common.cuh), the softmax uses the
+//    SFU's 2^x, and the dQ and dK/dV blocks share one launch; 70 KB of
+//    shared memory and at most 170 registers a thread let three blocks
+//    share an SM. (Splitting each streamed tile once per block, into high
+//    and low arrays, ran slower: the extra barrier and loads cost more than
+//    the conversions they saved.)
+//    S and dP go from their accumulators into the A fragments of dS K,
+//    P^T dO and dS^T Q without shuffles (keys or queries permuted inside
+//    each k-step, flash_common.cuh); rows of D + 4 floats keep every
+//    fragment load free of bank conflicts. The dQ kernel skips the key
+//    tiles past the last key that counts; a dK/dV block whose keys all
+//    fail the mask writes zeros at once.
 //  * bf16: mma.sync m16n8k16 with float32 accumulation, 4 warps of 16
 //    rows; the operand tiles sit in shared memory (rows padded by 16 bytes)
 //    and ldmatrix reads the fragments; P and dS go from the accumulators
-//    straight into A fragments, as P does in the forward.
-// Still simple: one shared-memory stage, no TMA, no wgmma, no fusion of the
-// two kernels; that is where a faster version goes next.
+//    straight into A fragments, as P does in the forward. No measured path
+//    runs it (the trainers are float32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using fa::cp_async16;
+using fa::NEG;
+using fa::smem_addr;
 
 constexpr int THREADS = 128;
 
 // ------------------------------------------------------------- float32 path
 
-constexpr int FR = 32;  // rows of a block (4 threads each)
+constexpr int FR = 64;  // rows a block owns: 4 warps x 16
 constexpr int FT = 32;  // rows of a streamed tile
 
-// dQ for 32 query rows of one (b, h); key tiles of 32 through shared memory.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+size_t f32_smem_bytes(int nwords) {  // 2 row tiles, 2 x 2 streamed stages, bits or LSE/Delta
+  return (size_t)(2 * FR + 4 * FT) * fa::f32_pitch<D>() * 4 + (size_t)nwords * 4 + 4 * FT * 4;
+}
+
+// dQ for 64 query rows (tile bx) of one (b, h) = by; key tiles of 32.
+template <int D>
+__device__ __forceinline__ void
+bwd_dq_f32(int bx, int by, const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ mask,
            const float* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ delta, float* __restrict__ dq, int Lq,
            int Lk, int H, int KVH, int causal, float scale) {
-  constexpr int DT = D / 4;  // dims per thread: d = 4 * i + t
-  __shared__ __align__(16) float Ks[FT * D];
-  __shared__ __align__(16) float Vs[FT * D];
-  __shared__ float Ms[FT];
+  constexpr int P = fa::f32_pitch<D>();
+  constexpr int TILE = FT * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [FR][P] Q
+  float* Gs = Qs + FR * P;                         // [FR][P] dO
+  float* Ks = Gs + FR * P;                         // [2][TILE]
+  float* Vs = Ks + 2 * TILE;                       // [2][TILE]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(Vs + 2 * TILE);
 
-  const int b = (int)blockIdx.y / H, h = (int)blockIdx.y % H;
+  const int b = by / H, h = by % H;
   const int kvh = h / (H / KVH);
-  const int t = threadIdx.x & 3;
-  const int q0 = (int)blockIdx.x * FR;
-  const int row = q0 + (int)(threadIdx.x >> 2);
+  const int q0 = bx * FR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const int r0 = q0 + row0 + g, r1 = r0 + 8;
   const size_t qstride = (size_t)H * D, kstride = (size_t)KVH * D;
   const float* qb = q + (size_t)b * Lq * qstride + (size_t)h * D;
   const float* gb = dout + (size_t)b * Lq * qstride + (size_t)h * D;
   const float* kb = k + (size_t)b * Lk * kstride + (size_t)kvh * D;
   const float* vb = v + (size_t)b * Lk * kstride + (size_t)kvh * D;
+  const int nwords = (Lk + 31) / 32;
 
-  float qv[DT], gv[DT], acc[DT];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    qv[i] = row < Lq ? qb[row * qstride + 4 * i + t] : 0.f;
-    gv[i] = row < Lq ? gb[row * qstride + 4 * i + t] : 0.f;
-    acc[i] = 0.f;
-  }
-  const size_t srow = ((size_t)b * H + h) * Lq + row;
-  const float lrow = row < Lq ? lse[srow] : 0.f;
-  const float drow = row < Lq ? delta[srow] : 0.f;
-
-  int n_tiles = (Lk + FT - 1) / FT;
+  fa::load_rows_f32<D>(Qs, qb, qstride, q0, FR, Lq);
+  fa::load_rows_f32<D>(Gs, gb, qstride, q0, FR, Lq);
+  fa::cp_async_commit();
+  fa::key_bits(bits, nwords, mask == nullptr ? nullptr : mask + (size_t)b * Lk, Lk);
+  fa::cp_async_wait<0>();
+  __syncthreads();
+  int n_tiles = (fa::last_key(bits, nwords) + FT) / FT;
   if (causal) n_tiles = min(n_tiles, (q0 + FR + FT - 1) / FT);
+
+  const size_t sb = ((size_t)b * H + h) * Lq;
+  const float sl2 = scale * fa::LOG2E;  // p = 2^(s scale log2 e - LSE log2 e)
+  const float l0 = r0 < Lq ? lse[sb + r0] * fa::LOG2E : 0.f;
+  const float l1 = r1 < Lq ? lse[sb + r1] * fa::LOG2E : 0.f;
+  const float d0 = r0 < Lq ? delta[sb + r0] : 0.f, d1 = r1 < Lq ? delta[sb + r1] : 0.f;
+
+  auto load_tile = [&](int j, int buf) {
+    fa::load_rows_f32<D>(Ks + buf * TILE, kb, kstride, j * FT, FT, Lk);
+    fa::load_rows_f32<D>(Vs + buf * TILE, vb, kstride, j * FT, FT, Lk);
+    fa::cp_async_commit();
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * FT;
-    __syncthreads();
-    for (int c = threadIdx.x; c < FT * D / 4; c += THREADS) {
-      const int r = c / (D / 4), cc = (c % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < Lk) {
-        kv = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * kstride + cc);
-        vv = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * kstride + cc);
-      }
-      *reinterpret_cast<float4*>(&Ks[r * D + cc]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r * D + cc]) = vv;
-    }
-    for (int c = threadIdx.x; c < FT; c += THREADS) {
-      const int key = k0 + c;
-      Ms[c] = (key < Lk && (mask == nullptr || mask[(size_t)b * Lk + key] > 0.f))
-                  ? 1.f : 0.f;
+    const int k0 = j * FT, buf = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1, buf ^ 1);
+      fa::cp_async_wait<1>();
+    } else {
+      fa::cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < FT; ++jj) {
-      float s = 0.f, dp = 0.f;
+    const float* Kt = Ks + buf * TILE;
+    const float* Vt = Vs + buf * TILE;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 32 keys per warp
+    float s[FT / 8][4], dp[FT / 8][4];
 #pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        s = fmaf(qv[i], Ks[jj * D + 4 * i + t], s);
-        dp = fmaf(gv[i], Vs[jj * D + 4 * i + t], dp);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
-      const bool ok = Ms[jj] > 0.f && (!causal || k0 + jj <= row);
-      const float p = ok ? expf(s * scale - lrow) : 0.f;
-      const float ds = p * (dp - drow);
+    for (int jn = 0; jn < FT / 8; ++jn)
 #pragma unroll
-      for (int i = 0; i < DT; ++i) acc[i] = fmaf(ds, Ks[jj * D + 4 * i + t], acc[i]);
+      for (int e = 0; e < 4; ++e) s[jn][e] = dp[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const fa::FragA qa = fa::load_a<D>(Qs, row0, kk, g, t);
+      const fa::FragA ga = fa::load_a<D>(Gs, row0, kk, g, t);
+      const int o = g * P + kk * 8 + t;
+      fa::mma_3xtf32_2x4(s, qa, Kt + o, dp, ga, Vt + o, 8 * P, 4);
     }
+    // P from the LSE, dS = P (dP - Delta), kept in s
+    const uint32_t word = bits[j];
+    const bool full = word == 0xffffffffu && (!causal || k0 + FT - 1 <= q0 + row0);
+#pragma unroll
+    for (int jn = 0; jn < FT / 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = jn * 8 + 2 * t + e, col = k0 + cl;
+        const bool ok = full || ((word >> cl) & 1u);
+        const float p0 = (ok && (full || !causal || col <= r0)) ? fa::ex2(fmaf(s[jn][e], sl2, -l0)) : 0.f;
+        const float p1 = (ok && (full || !causal || col <= r1)) ? fa::ex2(fmaf(s[jn][2 + e], sl2, -l1)) : 0.f;
+        s[jn][e] = p0 * (dp[jn][e] - d0);
+        s[jn][2 + e] = p1 * (dp[jn][2 + e] - d1);
+      }
+    }
+    // dQ += dS K: k-step kk takes keys 8 kk + 2t and 8 kk + 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < FT / 8; ++kk) {
+      const fa::FragA da = fa::acc_to_a(s[kk]);
+      const float* kp = Kt + (kk * 8 + 2 * t) * P + g;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 8)
+        fa::mma_3xtf32_2x4(acc + nd, da, kp + nd * 8, acc + nd + 4, da, kp + nd * 8 + 32, 8, P);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  if (row < Lq) {
-    float* ob = dq + (size_t)b * Lq * qstride + (size_t)h * D + row * qstride;
+
+  float* ob = dq + (size_t)b * Lq * qstride + (size_t)h * D;
 #pragma unroll
-    for (int i = 0; i < DT; ++i) ob[4 * i + t] = acc[i] * scale;
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(ob + r0 * qstride + c) =
+          make_float2(acc[nd][0] * scale, acc[nd][1] * scale);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(ob + r1 * qstride + c) =
+          make_float2(acc[nd][2] * scale, acc[nd][3] * scale);
   }
 }
 
-// dK and dV for 32 key rows of one (b, kv-head): query tiles of 32 of every
-// query head of the group through shared memory.
+// dK and dV for 64 key rows (tile bx) of one (b, kv-head) = by: query tiles
+// of 32 of every query head of the group. Each warp owns 16 key rows;
+// S^T = K Q^T.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+__device__ __forceinline__ void
+bwd_dkv_f32(int bx, int by, const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ mask,
             const float* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, float* __restrict__ dk,
             float* __restrict__ dv, int Lq, int Lk, int H, int KVH, int causal,
             float scale) {
-  constexpr int DT = D / 4;
-  __shared__ __align__(16) float Qs[FT * D];
-  __shared__ __align__(16) float Gs[FT * D];
-  __shared__ float Ls[FT], Ds[FT];
+  constexpr int P = fa::f32_pitch<D>();
+  constexpr int TILE = FT * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [FR][P] K
+  float* Vs = Ks + FR * P;                         // [FR][P] V
+  float* Qt = Vs + FR * P;                         // [2][TILE]
+  float* Gt = Qt + 2 * TILE;                       // [2][TILE]
+  float* Ls = Gt + 2 * TILE;                       // [2][FT]
+  float* Ds = Ls + 2 * FT;                         // [2][FT]
 
-  const int b = (int)blockIdx.y / KVH, kvh = (int)blockIdx.y % KVH;
+  const int b = by / KVH, kvh = by % KVH;
   const int rep = H / KVH;
-  const int t = threadIdx.x & 3;
-  const int k0 = (int)blockIdx.x * FR;
-  const int key = k0 + (int)(threadIdx.x >> 2);
+  const int k0 = bx * FR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const int r0 = k0 + row0 + g, r1 = r0 + 8;  // this lane's two key rows
   const size_t qstride = (size_t)H * D, kstride = (size_t)KVH * D;
   const float* kb = k + (size_t)b * Lk * kstride + (size_t)kvh * D;
   const float* vb = v + (size_t)b * Lk * kstride + (size_t)kvh * D;
-  const bool key_ok = key < Lk && (mask == nullptr || mask[(size_t)b * Lk + key] > 0.f);
+  const bool ok0 = r0 < Lk && (mask == nullptr || mask[(size_t)b * Lk + r0] > 0.f);
+  const bool ok1 = r1 < Lk && (mask == nullptr || mask[(size_t)b * Lk + r1] > 0.f);
+  const size_t base = (size_t)b * Lk * kstride + (size_t)kvh * D;
+  const float sl2 = scale * fa::LOG2E;
 
-  float kv[DT], vv[DT], dka[DT], dva[DT];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    kv[i] = key < Lk ? kb[key * kstride + 4 * i + t] : 0.f;
-    vv[i] = key < Lk ? vb[key * kstride + 4 * i + t] : 0.f;
-    dka[i] = dva[i] = 0.f;
+  // a block whose keys all fail the mask has dK = dV = 0 (p = 0 throughout)
+  if (!__syncthreads_or(ok0 || ok1)) {
+    for (int c = threadIdx.x; c < FR * D; c += THREADS) {
+      const int r = k0 + c / D;
+      if (r < Lk) dk[base + r * kstride + c % D] = dv[base + r * kstride + c % D] = 0.f;
+    }
+    return;
   }
+
+  fa::load_rows_f32<D>(Ks, kb, kstride, k0, FR, Lk);
+  fa::load_rows_f32<D>(Vs, vb, kstride, k0, FR, Lk);
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
 
   const int first = causal ? k0 / FT : 0;  // query rows below k0 see no key here
-  for (int r = 0; r < rep; ++r) {
-    const int h = kvh * rep + r;
+  const int per_head = max((Lq + FT - 1) / FT - first, 0);
+  const int n_tiles = rep * per_head;
+
+  auto load_tile = [&](int it, int buf) {  // query tile it % per_head of head it / per_head
+    const int h = kvh * rep + it / per_head, i0 = (first + it % per_head) * FT;
     const float* qb = q + (size_t)b * Lq * qstride + (size_t)h * D;
     const float* gb = dout + (size_t)b * Lq * qstride + (size_t)h * D;
+    fa::load_rows_f32<D>(Qt + buf * TILE, qb, qstride, i0, FT, Lq);
+    fa::load_rows_f32<D>(Gt + buf * TILE, gb, qstride, i0, FT, Lq);
     const size_t sb = ((size_t)b * H + h) * Lq;
-    for (int i0 = first * FT; i0 < Lq; i0 += FT) {
-      __syncthreads();
-      for (int c = threadIdx.x; c < FT * D / 4; c += THREADS) {
-        const int rr = c / (D / 4), cc = (c % (D / 4)) * 4;
-        float4 qq = make_float4(0.f, 0.f, 0.f, 0.f), gg = qq;
-        if (i0 + rr < Lq) {
-          qq = *reinterpret_cast<const float4*>(qb + (size_t)(i0 + rr) * qstride + cc);
-          gg = *reinterpret_cast<const float4*>(gb + (size_t)(i0 + rr) * qstride + cc);
-        }
-        *reinterpret_cast<float4*>(&Qs[rr * D + cc]) = qq;
-        *reinterpret_cast<float4*>(&Gs[rr * D + cc]) = gg;
-      }
-      for (int c = threadIdx.x; c < FT; c += THREADS) {
-        Ls[c] = i0 + c < Lq ? lse[sb + i0 + c] : 0.f;
-        Ds[c] = i0 + c < Lq ? delta[sb + i0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int ii = 0; ii < FT; ++ii) {
-        float s = 0.f, dp = 0.f;
+    for (int c = threadIdx.x; c < FT; c += THREADS) {
+      const bool in = i0 + c < Lq;
+      fa::cp_async4(Ls + buf * FT + c, lse + (in ? sb + i0 + c : 0), in ? 4 : 0);
+      fa::cp_async4(Ds + buf * FT + c, delta + (in ? sb + i0 + c : 0), in ? 4 : 0);
+    }
+    fa::cp_async_commit();
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-        for (int i = 0; i < DT; ++i) {
-          s = fmaf(kv[i], Qs[ii * D + 4 * i + t], s);
-          dp = fmaf(vv[i], Gs[ii * D + 4 * i + t], dp);
-        }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 2);
-        const int row = i0 + ii;
-        const bool ok = key_ok && row < Lq && (!causal || key <= row);
-        const float p = ok ? expf(s * scale - Ls[ii]) : 0.f;
-        const float ds = p * (dp - Ds[ii]);
+  for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
-        for (int i = 0; i < DT; ++i) {
-          dva[i] = fmaf(p, Gs[ii * D + 4 * i + t], dva[i]);
-          dka[i] = fmaf(ds, Qs[ii * D + 4 * i + t], dka[i]);
-        }
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int i0 = (first + it % per_head) * FT, buf = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1, buf ^ 1);
+      fa::cp_async_wait<1>();
+    } else {
+      fa::cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage is visible
+    const float* Qc = Qt + buf * TILE;
+    const float* Gc = Gt + buf * TILE;
+    const float* Lc = Ls + buf * FT;
+    const float* Dc = Ds + buf * FT;
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries per warp
+    float s[FT / 8][4], dp[FT / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < FT / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jn][e] = dp[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const fa::FragA ka = fa::load_a<D>(Ks, row0, kk, g, t);
+      const fa::FragA va = fa::load_a<D>(Vs, row0, kk, g, t);
+      const int o = g * P + kk * 8 + t;
+      fa::mma_3xtf32_2x4(s, ka, Qc + o, dp, va, Gc + o, 8 * P, 4);
+    }
+    // P^T into s, dS^T into dp
+#pragma unroll
+    for (int jn = 0; jn < FT / 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = jn * 8 + 2 * t + e, col = i0 + cl;
+        const bool in = col < Lq;
+        const float lc = Lc[cl] * fa::LOG2E;
+        const float p0 = (ok0 && in && (!causal || r0 <= col)) ? fa::ex2(fmaf(s[jn][e], sl2, -lc)) : 0.f;
+        const float p1 = (ok1 && in && (!causal || r1 <= col)) ? fa::ex2(fmaf(s[jn][2 + e], sl2, -lc)) : 0.f;
+        s[jn][e] = p0;
+        s[jn][2 + e] = p1;
+        dp[jn][e] = p0 * (dp[jn][e] - Dc[cl]);
+        dp[jn][2 + e] = p1 * (dp[jn][2 + e] - Dc[cl]);
       }
     }
-  }
-  if (key < Lk) {
-    const size_t off = (size_t)b * Lk * kstride + (size_t)kvh * D + key * kstride;
+    // dV += P^T dO and dK += dS^T Q: k-step kk takes queries 8 kk + 2t and
+    // 8 kk + 2t + 1
 #pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      dk[off + 4 * i + t] = dka[i] * scale;
-      dv[off + 4 * i + t] = dva[i];
+    for (int kk = 0; kk < FT / 8; ++kk) {
+      const fa::FragA pa = fa::acc_to_a(s[kk]);
+      const fa::FragA da = fa::acc_to_a(dp[kk]);
+      const int o = (kk * 8 + 2 * t) * P + g;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 4)
+        fa::mma_3xtf32_2x4(dva + nd, pa, Gc + o + nd * 8, dka + nd, da, Qc + o + nd * 8, 8, P);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (r0 < Lk) {
+      *reinterpret_cast<float2*>(dk + base + r0 * kstride + c) =
+          make_float2(dka[nd][0] * scale, dka[nd][1] * scale);
+      *reinterpret_cast<float2*>(dv + base + r0 * kstride + c) = make_float2(dva[nd][0], dva[nd][1]);
+    }
+    if (r1 < Lk) {
+      *reinterpret_cast<float2*>(dk + base + r1 * kstride + c) =
+          make_float2(dka[nd][2] * scale, dka[nd][3] * scale);
+      *reinterpret_cast<float2*>(dv + base + r1 * kstride + c) = make_float2(dva[nd][2], dva[nd][3]);
     }
   }
+}
+
+// Both float32 kernels in one launch, so their blocks share the card's
+// waves: blocks [0, n_dkv) are dK/dV blocks (the longer ones, first), the
+// rest dQ blocks; n_dkv = ceil(Lk / 64) B KVH.
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 1)
+bwd_dq_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq,
+               float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk, int H,
+               int KVH, int causal, float scale, int n_dkv) {
+  const int nk = (Lk + FR - 1) / FR, nq = (Lq + FR - 1) / FR;
+  const int i = (int)blockIdx.x;
+  if (i < n_dkv)
+    bwd_dkv_f32<D>(i % nk, i / nk, q, k, v, mask, dout, lse, delta, dk, dv, Lq, Lk, H, KVH,
+                   causal, scale);
+  else
+    bwd_dq_f32<D>((i - n_dkv) % nq, (i - n_dkv) / nq, q, k, v, mask, dout, lse, delta, dq,
+                  Lq, Lk, H, KVH, causal, scale);
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -245,10 +393,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
 // i / 8. Plain, lane l receives row l / 4, columns 2(l % 4) and 2(l % 4)+1 of
 // each matrix; with .trans the transpose.
@@ -262,11 +406,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -572,10 +711,10 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, const float* mask,
-            const void* dout, const float* lse, const float* delta, void* dq,
-            void* dk, void* dv, int B, int Lq, int Lk, int H, int KVH, int causal,
-            int is_bf16, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const float* mask,
+           const void* dout, const float* lse, const float* delta, void* dq,
+           void* dk, void* dv, int B, int Lq, int Lk, int H, int KVH, int causal,
+           int is_bf16, float scale, cudaStream_t st) {
   if (is_bf16) {
     using T = __nv_bfloat16;
     dim3 gq((Lq + BR - 1) / BR, B * H), gk((Lk + BR - 1) / BR, B * KVH);
@@ -583,20 +722,21 @@ void launch(const void* q, const void* k, const void* v, const float* mask,
         (const T*)q, (const T*)k, (const T*)v, mask, (const T*)dout, lse, delta,
         (T*)dq, Lq, Lk, H, KVH, causal, scale);
     constexpr int smem = dkv_bf16_smem_bytes<D>();
-    cudaFuncSetAttribute(bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
+    fa::allow_max_smem<bwd_dkv_bf16<D>>();
     bwd_dkv_bf16<D><<<gk, THREADS, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, mask, (const T*)dout, lse, delta,
         (T*)dk, (T*)dv, Lq, Lk, H, KVH, causal, scale);
   } else {
-    dim3 gq((Lq + FR - 1) / FR, B * H), gk((Lk + FR - 1) / FR, B * KVH);
-    bwd_dq_f32<D><<<gq, THREADS, 0, st>>>(
+    const size_t smem = f32_smem_bytes<D>((Lk + 31) / 32);
+    if (smem > fa::MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const int n_dkv = ((Lk + FR - 1) / FR) * B * KVH;
+    const int blocks = n_dkv + ((Lq + FR - 1) / FR) * B * H;
+    fa::allow_max_smem<bwd_dq_dkv_f32<D>>();
+    bwd_dq_dkv_f32<D><<<blocks, THREADS, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, mask, (const float*)dout,
-        lse, delta, (float*)dq, Lq, Lk, H, KVH, causal, scale);
-    bwd_dkv_f32<D><<<gk, THREADS, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, mask, (const float*)dout,
-        lse, delta, (float*)dk, (float*)dv, Lq, Lk, H, KVH, causal, scale);
+        lse, delta, (float*)dq, (float*)dk, (float*)dv, Lq, Lk, H, KVH, causal, scale, n_dkv);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -604,7 +744,9 @@ void launch(const void* q, const void* k, const void* v, const float* mask,
 // q, dout, dq (B, Lq, H, D); k, v, dk, dv (B, Lk, KVH, D), all contiguous,
 // bf16 when is_bf16 else f32; mask (B, Lk) f32 or null (1 = attend); lse and
 // delta (B, H, Lq) f32. D is 64 or 128 and KVH divides H. Launches the dQ
-// kernel, then the dK/dV kernel, on `stream`; returns cudaGetLastError().
+// and dK/dV kernels on `stream` (bf16: one after the other; float32: one
+// launch of both); returns cudaGetLastError(), or cudaErrorInvalidValue for
+// a shape it does not take.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* mask, const void* dout, const void* lse,
                               const void* delta, void* dq, void* dk, void* dv,
@@ -615,12 +757,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
   if (D == 64)
-    launch<64>(q, k, v, m, dout, l, dl, dq, dk, dv, B, Lq, Lk, H, KVH, causal, is_bf16,
-               scale, st);
-  else if (D == 128)
-    launch<128>(q, k, v, m, dout, l, dl, dq, dk, dv, B, Lq, Lk, H, KVH, causal, is_bf16,
-                scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch<64>(q, k, v, m, dout, l, dl, dq, dk, dv, B, Lq, Lk, H, KVH, causal,
+                      is_bf16, scale, st);
+  if (D == 128)
+    return launch<128>(q, k, v, m, dout, l, dl, dq, dk, dv, B, Lq, Lk, H, KVH, causal,
+                       is_bf16, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

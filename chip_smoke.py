@@ -3,8 +3,9 @@
 
 Builds the eight CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
 with nvcc (one process each, in parallel) and holds each against its plain
-PyTorch version (the flash-attention backward also in bf16, against float64
-autograd and for bit-equal relaunches; Snake's forward and backward and the
+PyTorch version (the flash-attention forward and backward in bf16 and
+float32, both for bit-equal relaunches, the backward also against float64
+autograd; Snake's forward and backward and the
 anti-aliased SnakeBeta in float32 and bf16, ragged and short signals). Then,
 at the full width of ``config/vevo.json`` with random weights from
 ``--seed``:
@@ -36,7 +37,8 @@ anti-aliased SnakeBeta kernel on the inputs of one 10 s file's 73
 activations. It then
 measures what padding each voice decode to ``max_batch`` rows costs and
 which PyTorch operations make the padding necessary, times each kernel at
-the shapes the paths gave it, and profiles one voice batch, two steps of
+the shapes the paths gave it (by CUDA-graph replays, beside SDPA timed the
+same way for the flash kernels), and profiles one voice batch, two steps of
 each trainer and one 10 s copy synthesis. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--max-new 768]
@@ -72,7 +74,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_flatten, tree_unflatten  # noqa: E402
 
 SR, HOP, N_FFT = 24000, 120, 1024
-PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM data sheet
+PEAK_BF16, PEAK_F32, PEAK_TF32, HBM = 989e12, 67e12, 495e12, 3.35e12  # H100 SXM data sheet
 # (reference seconds, source seconds) of the four requests: one length
 # bucket, so the four share one batch of flash-attention shape (4, 1536, 16, 64)
 REQUESTS = [(2.0, 4.6), (2.6, 5.5), (3.3, 6.8), (4.0, 8.0)]
@@ -112,14 +114,16 @@ def gpu_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, stream=None) -> float:
     """Mean device time of one ``fn()``, the host's launch overhead taken
     out: ``fn`` is captured ``reps`` times in one CUDA graph, with ``reps``
     (at most 64) chosen so that a replay lasts at least 1 ms and so hides
     the host's cost of launching the next, the graph is replayed ``iters``
     times after warm-up, timed by CUDA events, and the mean replay is
-    divided by ``reps``."""
-    side = torch.cuda.Stream()
+    divided by ``reps``. Warm-up and capture run on ``stream`` (a new side
+    stream by default): an autograd backward launches on the stream its
+    forward ran on, so timing one means running that forward on it first."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -128,7 +132,7 @@ def graph_ms(fn, iters: int = 20) -> float:
 
     def captured(reps: int):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(reps):
                 fn()
         return graph
@@ -197,6 +201,7 @@ def kernel_phase(mel_mod, flash_mod, seed: int) -> dict:
                 valid = torch.tensor([lk - 37 * i for i in range(b)], device=dev)
                 mask = (torch.arange(lk, device=dev)[None] < valid[:, None]).float()
             out = flash_mod.flash_attention(q, k, v, mask, causal)
+            again = flash_mod.flash_attention(q, k, v, mask, causal)
             ref = flash_mod.attention_ref(q, k, v, mask, causal)
             name = f"B={b} Lq={lq} Lk={lk} H={h} KVH={kvh} D={d} causal={causal} mask={use_mask}"
             if dtype == torch.bfloat16:
@@ -206,7 +211,8 @@ def kernel_phase(mel_mod, flash_mod, seed: int) -> dict:
                 ok, detail = err <= 1e-4, f"max|err| {err:.3g} (tol 1e-4)"
             if (b, lq, h, d, dtype) == (4, 1536, 16, 64, torch.bfloat16):
                 errs["flash"] = (out.float() - ref.float()).abs().max().item()
-            check(name, ok, detail)
+            same = torch.equal(out, again)
+            check(name, ok and same, f"{detail}; bit-equal on relaunch: {same}")
     return errs
 
 
@@ -424,15 +430,19 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
     mask = (torch.arange(L, device=dev)[None] < valid[:, None]).float()
     bmask = (mask > 0)[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    fl_ms = gpu_ms(lambda: flash_mod.flash_attention(q, k, v, mask))
-    fl_plain = gpu_ms(lambda: flash_mod.attention_ref(q, k, v, mask), iters=5)
-    fl_lib = gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask))
+    kernel = lambda: flash_mod.flash_attention(q, k, v, mask)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask)  # noqa: E731
+    log(f"timing flash_attn_fwd, launched from Python (gpu_ms): kernel {gpu_ms(kernel):.5f} ms, "
+        f"library (SDPA) {gpu_ms(sdpa):.5f} ms")
+    fl_ms, fl_lib = graph_ms(kernel), graph_ms(sdpa)
+    fl_plain = graph_ms(lambda: flash_mod.attention_ref(q, k, v, mask), iters=5)
     fl_flops = 4.0 * h * d * L * float(valid.sum())  # QK^T and PV over valid keys
     fl_bytes = 4 * b * L * h * d * 2 + b * L * 4
     fl_bound = max(fl_flops / PEAK_BF16, fl_bytes / HBM) * 1e3
-    log(f"timing flash_attn_fwd: kernel {fl_ms:.5f} ms, plain {fl_plain:.5f} ms, "
-        f"library (SDPA) {fl_lib:.5f} ms, bound {fl_bound:.5f} ms at bf16 q/k/v "
-        f"({b}, {L}, {h}, {d}), key mask, valid {sl['valid']}")
+    log(f"timing flash_attn_fwd (graph replays, {nvidia_smi()}): kernel {fl_ms:.5f} ms "
+        f"({fl_flops / fl_ms / 1e9:.1f} TFLOP/s), plain {fl_plain:.5f} ms, library (SDPA) "
+        f"{fl_lib:.5f} ms, bound {fl_bound:.5f} ms at bf16 q/k/v ({b}, {L}, {h}, {d}), key mask, "
+        f"valid {sl['valid']}")
 
     return [
         _row("mel_spectrogram", "mel.cu", 425, sl["launches"]["mel"], errs["mel"], mel_ms,
@@ -440,7 +450,8 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
             "operations" if mel_flops / PEAK_F32 >= mel_bytes / HBM else "bytes", mel_lib),
         _row("flash_attn_fwd", "flash_attn_fwd.cu", 843, sl["launches"]["flash_attn_fwd"],
             errs["flash"], fl_ms, fl_plain, fl_bound,
-            "operations" if fl_flops / PEAK_BF16 >= fl_bytes / HBM else "bytes", fl_lib),
+            "operations" if fl_flops / PEAK_BF16 >= fl_bytes / HBM else "bytes", fl_lib,
+            timing="graph replays (kernel, plain and SDPA)"),
     ]
 
 
@@ -1433,59 +1444,110 @@ def train_reference_phase(seed: int) -> None:
               f"{len(res['cpu'][1])} tensors")
 
 
+def profiled_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` from torch.profiler: the durations of
+    every kernel it launched, summed over ``iters`` calls after warm-up,
+    over ``iters`` (host gaps left out, as in a graph replay)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name, _ = device_us_by_name(prof)
+    return sum(by_name.values()) / iters / 1e3
+
+
+def sdpa_bwd_ms(qt, kt, vt, allowed, dot) -> tuple[float, str, str]:
+    """The backward of ``F.scaled_dot_product_attention`` with the same
+    mask, by ``torch.autograd.grad`` on a retained graph: timed by graph
+    replays (its forward runs on the capture stream, so autograd launches
+    the backward there), or by the profiler's device time where the capture
+    fails. Returns (ms, method, backend)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None])
+    torch.cuda.current_stream().wait_stream(side)
+    grad = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    try:
+        return graph_ms(grad, stream=side), "graph replays", out.grad_fn.name()
+    except Exception as exc:  # noqa: BLE001 - the profiler measures it instead
+        log(f"  SDPA backward capture failed ({type(exc).__name__}: {exc}); profiler time")
+        torch.cuda.synchronize()
+        return profiled_ms(grad), "profiler", out.grad_fn.name()
+
+
 def bwd_timing_phase(flash_mod, train: dict, errs: dict) -> tuple[dict, dict]:
     """Kernel 7 (and kernel 6's training forward) in float32 at the FM and
-    AR training shapes: the wrapper's time per call (Δ reduction included),
-    the plain version's, the backward of ``F.scaled_dot_product_attention``
-    with the same mask (by ``torch.autograd.grad`` on a retained graph) and
-    the bound: 10 D operations per attended (query, key) pair at 67 TFLOP/s,
-    or q, k, v, o, dO, dq, dk, dv and the LSE once over 3.35 TB/s."""
+    AR training shapes, each by graph replays: the wrapper's time per call
+    (Δ reduction included), the plain version's, SDPA's forward and
+    backward with the same mask (`sdpa_bwd_ms`), and two bounds: 10 D
+    operations per attended (query, key) pair at the 67 TFLOP/s float32
+    FMA rate, or q, k, v, o, dO, dq, dk, dv and the LSE once over 3.35
+    TB/s, the larger (``bound_ms``); and the same operations done as three
+    TF32 products at the 495 TFLOP/s TF32 rate, as the kernels do them
+    (``bound_3xtf32_ms``, the bound rule 2 holds a kernel to)."""
     g = torch.Generator(DEV).manual_seed(31)
     out = {}
     for stage, (_, _, (b, L, h, d), causal, _) in TRAIN.items():
         case = "fm_train" if stage == "fm" else "ar_train"
         q, k, v, mask, do, causal = bwd_inputs(case, torch.float32, g)
         o, lse = flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)
-        k_ms = gpu_ms(lambda: flash_mod.flash_attention_bwd(q, k, v, mask, o, lse, do, causal))
-        p_ms = gpu_ms(lambda: flash_mod.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
-                                                                causal), iters=3)
-        f_ms = gpu_ms(lambda: flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True))
+        bwd = lambda: flash_mod.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)  # noqa: E731
+        fwd = lambda: flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)  # noqa: E731
         allowed = (mask > 0)[:, None, :].expand(b, L, L)
         if causal:
             allowed = allowed & torch.ones((L, L), dtype=torch.bool, device=DEV).tril()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt.detach(), kt.detach(), vt.detach(), attn_mask=allowed[:, None])
+        log(f"timing flash {stage}, launched from Python (gpu_ms): backward {gpu_ms(bwd):.5f} ms, "
+            f"forward with LSE {gpu_ms(fwd):.5f} ms, SDPA forward {gpu_ms(sdpa_fwd):.5f} ms")
+        k_ms, f_ms, lib_fwd = graph_ms(bwd), graph_ms(fwd), graph_ms(sdpa_fwd)
+        p_ms = graph_ms(lambda: flash_mod.flash_attention_bwd_ref(q, k, v, mask, o, lse, do,
+                                                                  causal), iters=3)
+        lib_ms, method, backend = sdpa_bwd_ms(qt, kt, vt, allowed, do.transpose(1, 2))
         pairs = float(allowed.sum()) * h
         ops, nbytes = 10.0 * d * pairs, 4.0 * (8 * b * L * h * d + b * h * L)
         t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM
         bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed[:, None])
-        backend = sdpa.grad_fn.name()
-        dot = do.transpose(1, 2)
-        lib_ms = gpu_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True))
-        lib_fwd = gpu_ms(lambda: F.scaled_dot_product_attention(qt.detach(), kt.detach(),
-                                                                vt.detach(), attn_mask=allowed[:, None]))
+        bound_tc = max(3 * ops / PEAK_TF32, t_bytes) * 1e3
         # the forward with the LSE: QK^T and PV, 4 D per pair; q, k, v, o and the LSE
-        f_bound = max(4.0 * d * pairs / PEAK_F32, 4.0 * (4 * b * L * h * d + b * h * L) / HBM) * 1e3
+        f_bytes = 4.0 * (4 * b * L * h * d + b * h * L) / HBM
+        f_bound = max(4.0 * d * pairs / PEAK_F32, f_bytes) * 1e3
+        f_bound_tc = max(3 * 4.0 * d * pairs / PEAK_TF32, f_bytes) * 1e3
         out[stage] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-                      "library_ms": lib_ms, "library_backend": backend, "fwd_ms": f_ms,
-                      "fwd_library_ms": lib_fwd, "fwd_bound_ms": f_bound, "pairs": pairs}
+                      "bound_3xtf32_ms": bound_tc, "library_ms": lib_ms,
+                      "library_backend": backend, "library_timing": method, "fwd_ms": f_ms,
+                      "fwd_library_ms": lib_fwd, "fwd_bound_ms": f_bound,
+                      "fwd_bound_3xtf32_ms": f_bound_tc, "pairs": pairs}
         log(f"timing flash_attn_bwd {stage} ({b}, {L}, {h}, {d}) f32 causal={causal} "
-            f"({nvidia_smi()}): kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, library (SDPA "
-            f"backward, {backend}) {lib_ms:.5f} ms, bound {bound:.5f} ms ({by}: {ops / 1e9:.2f} "
-            f"GFLOP, {nbytes / 1e6:.1f} MB); forward with LSE {f_ms:.5f} ms (SDPA {lib_fwd:.5f} ms, "
-            f"bound {f_bound:.5f} ms)")
+            f"(graph replays, {nvidia_smi()}): kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
+            f"library (SDPA backward, {backend}, {method}) {lib_ms:.5f} ms, bound {bound:.5f} ms "
+            f"({by}: {ops / 1e9:.2f} GFLOP at 67 TFLOP/s, {nbytes / 1e6:.1f} MB), 3xTF32 bound "
+            f"{bound_tc:.5f} ms; forward with LSE {f_ms:.5f} ms (SDPA {lib_fwd:.5f} ms, bound "
+            f"{f_bound:.5f} ms, 3xTF32 bound {f_bound_tc:.5f} ms)")
     fm, ar = out["fm"], out["ar"]
     launches = train["fm"]["launches"]["flash_attn_bwd"] + train["ar"]["launches"]["flash_attn_bwd"]
     row = _row("flash_attn_bwd", "flash_attn_bwd.cu", 1044, launches, errs["flash_bwd"],
                fm["ms"], fm["plain_ms"], fm["bound_ms"], fm["bound_by"], fm["library_ms"],
                shape="fm (8, 256, 16, 64) f32; ar_* (8, 516, 20, 64) f32 causal",
                launches_per_step={"fm": FM_LAYERS, "ar": AR_LAYERS},
-               library_backend=fm["library_backend"], ar_ms=ar["ms"], ar_plain_ms=ar["plain_ms"],
-               ar_bound_ms=ar["bound_ms"], ar_library_ms=ar["library_ms"],
+               bound_3xtf32_ms=fm["bound_3xtf32_ms"], library_backend=fm["library_backend"],
+               timing=f"graph replays; SDPA backward: {fm['library_timing']}",
+               ar_ms=ar["ms"], ar_plain_ms=ar["plain_ms"], ar_bound_ms=ar["bound_ms"],
+               ar_bound_3xtf32_ms=ar["bound_3xtf32_ms"], ar_library_ms=ar["library_ms"],
                ar_library_backend=ar["library_backend"],
+               ar_library_timing=ar["library_timing"],
                also_replaces="amphion_tpu/ops/pallas_kernels.py:1073")
     fwd_extra = {"train_f32_ms": {"fm": fm["fwd_ms"], "ar": ar["fwd_ms"]},
                  "train_f32_bound_ms": {"fm": fm["fwd_bound_ms"], "ar": ar["fwd_bound_ms"]},
+                 "train_f32_bound_3xtf32_ms": {"fm": fm["fwd_bound_3xtf32_ms"],
+                                               "ar": ar["fwd_bound_3xtf32_ms"]},
                  "train_f32_library_ms": {"fm": fm["fwd_library_ms"], "ar": ar["fwd_library_ms"]},
                  "train_launches": {s: train[s]["launches"]["flash_attn_fwd"] for s in TRAIN}}
     return row, fwd_extra

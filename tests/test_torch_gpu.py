@@ -52,13 +52,32 @@ def test_mel_kernel_matches_plain(cuda, b, t):
     assert (out - ref).abs().max().item() <= 1e-3
 
 
-CASES = {  # b, lq, lk, h, kvh, d, causal, mask
+# The tiles' edges: the bf16 forward takes 128 query rows and 64 keys a
+# tile, the float32 kernels 64 rows and 32 keys; (129, 193) is one past a
+# tile on both sides, "short_keys" has fewer keys than one tile, "d128" and
+# "d128_edges" take two 128-byte swizzle boxes per bf16 row, and
+# "dead_row" masks every key of batch row 1 (its output is 0).
+CASES = {  # b, lq, lk, h, kvh, d, causal, mask (False, True = ragged, "dead_row")
     "slice": (4, 1536, 1536, 16, 16, 64, False, True),
     "causal": (2, 300, 300, 16, 16, 64, True, True),
     "gqa": (2, 256, 256, 16, 4, 64, True, False),
     "lq_ne_lk": (2, 200, 700, 8, 8, 64, False, True),
     "d128": (1, 333, 333, 8, 2, 128, False, True),
+    "tile_edges": (2, 129, 193, 8, 8, 64, False, True),
+    "tile_edges_causal": (1, 193, 129, 4, 2, 64, True, True),
+    "short_keys": (2, 70, 20, 4, 4, 64, False, True),
+    "gqa16_4_ragged": (2, 300, 300, 16, 4, 64, False, True),
+    "d128_edges": (1, 129, 193, 4, 2, 128, True, True),
+    "dead_row": (3, 150, 150, 8, 4, 64, False, "dead_row"),
 }
+
+
+def _ragged_mask(cuda, b, lk, kind):
+    valid = torch.linspace(0.6, 1.0, b, device=cuda) * lk
+    mask = (torch.arange(lk, device=cuda)[None] < valid[:, None].ceil()).float()
+    if kind == "dead_row":
+        mask[1] = 0.0
+    return mask
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -69,17 +88,22 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     q = torch.randn((b, lq, h, d), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, lk, kvh, d), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, lk, kvh, d), generator=g, device=cuda).to(dtype)
-    mask = None
-    if use_mask:
-        valid = torch.linspace(0.6, 1.0, b, device=cuda) * lk
-        mask = (torch.arange(lk, device=cuda)[None] < valid[:, None]).float()
+    mask = _ragged_mask(cuda, b, lk, use_mask) if use_mask else None
     n = FLASH.launches
     out, lse = flash_attention(q, k, v, mask, causal, return_lse=True)
     torch.cuda.synchronize()
     assert FLASH.launches == n + 1 and out.dtype == dtype
     ref, ref_lse = attention_ref(q, k, v, mask, causal, return_lse=True)
-    _close(out, ref, dtype)
-    assert (lse - ref_lse).abs().max().item() <= 2e-2
+    # a batch row with every key masked gives 0 (the plain version attends
+    # uniformly there); the others are held to the plain version
+    live = torch.ones(b, dtype=torch.bool, device=cuda) if mask is None else mask.amax(1) > 0
+    if not live.all():
+        assert not out[~live].float().abs().max().item()
+    _close(out[live], ref[live], dtype)
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 2e-2
+    # no atomics: a second launch gives the same bits
+    again, again_lse = flash_attention(q, k, v, mask, causal, return_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
 
 
 def test_flash_kernel_fully_masked_rows_stay_finite(cuda):
@@ -186,13 +210,19 @@ def test_decode_attention_int8_kernel_matches_plain(cuda, b, h, s, d, lens):
 # the forward's bf16 gate. Both directions start from the kernel's own
 # forward output and LSE.
 
-BWD_CASES = {  # b, lq, lk, h, kvh, d, causal, mask ("ones", "ragged", None)
+BWD_CASES = {  # b, lq, lk, h, kvh, d, causal, mask ("ones", "ragged", "dead_row", None)
     "fm_train": (8, 256, 256, 16, 16, 64, False, "ones"),
     "ar_train": (8, 516, 516, 20, 20, 64, True, "ragged"),
     "gqa_uneven": (2, 200, 333, 8, 2, 64, False, "ragged"),
     "gqa_causal_tails": (1, 37, 53, 8, 2, 64, True, "ragged"),
     "lq_gt_lk": (1, 50, 30, 2, 1, 64, False, None),
     "d128": (2, 190, 190, 4, 2, 128, True, "ragged"),
+    "tile_edges": (2, 129, 193, 8, 8, 64, False, "ragged"),
+    "tile_edges_causal": (1, 193, 129, 4, 2, 64, True, "ragged"),
+    "short_keys": (2, 70, 20, 4, 2, 64, True, "ragged"),
+    "gqa16_4_ragged": (2, 256, 256, 16, 4, 64, False, "ragged"),
+    "d128_edges": (1, 129, 193, 4, 2, 128, False, "ragged"),
+    "dead_row": (3, 150, 150, 8, 4, 64, False, "dead_row"),
 }
 
 
@@ -204,9 +234,8 @@ def _bwd_inputs(cuda, case, dtype):
     mask = None
     if mask_kind == "ones":
         mask = torch.ones((b, lk), device=cuda)
-    elif mask_kind == "ragged":
-        valid = torch.linspace(0.6, 1.0, b, device=cuda) * lk
-        mask = (torch.arange(lk, device=cuda)[None] < valid[:, None].ceil()).float()
+    elif mask_kind is not None:
+        mask = _ragged_mask(cuda, b, lk, mask_kind)
     return q, k, v, mask, do, causal
 
 
