@@ -16,12 +16,20 @@
 //  * GEMV, M <= 8 (decode steps): bound by the weight bytes over 3.35 TB/s,
 //    half of int8's. As in int8_matmul.cu the products run on the tensor
 //    cores with the weights as the A operand and x as the n8-wide B operand,
-//    so the work per weight does not grow with M; nibbles become bf16 by a
-//    bit-pattern trick. Each 128-value chunk is one group: its products land
-//    in a fresh float32 fragment that is scaled once, as the TPU kernel
-//    scales each group's dot. A block of 8 warps owns 16 columns and splits
-//    K between its warps. (The first versions multiplied on the CUDA cores:
-//    14-29 us a call at M = 4 on the H100, growing with M.)
+//    so the work per weight does not grow with M. The kernel is the shared
+//    GEMV of quant_common.cuh with this file's format (`Int4`): each
+//    128-value chunk is one group, whose products land in a fresh float32
+//    fragment that is scaled once, as the TPU kernel scales each group's
+//    dot; nibbles become bf16 two at a time (one LOP3 into the mantissa of
+//    the bf16 128 + u, one bf16x2 fma), x is paired to match by byte
+//    permutation, and each group's scales are loaded with its weights. Two
+//    chunks per warp are in flight, a cluster splits K where N is narrow and
+//    K deep (down), and the RMSNorm prologue's sums of squares run while the
+//    first chunks' loads fly. On an NVIDIA H100 80GB HBM3 at 700 W, one Vevo
+//    AR decode step (96 projections at M = 4) takes about 0.46 ms against
+//    the first version's 0.60 ms, torch._weight_int4pack_mm's 0.51 ms and a
+//    byte bound of 0.0861 ms (tools/quant_ab.py; PERF.md has each
+//    projection's time).
 //  * GEMM, larger M (prefill, the flow-matching estimator): bound by the
 //    tensor cores. A block of 8 warps owns a 128 x 64 tile; each 32-wide K
 //    step (always inside one group) stages bf16(x) and the weight tile
@@ -36,20 +44,22 @@ namespace {
 
 using namespace quant;
 
-constexpr int GEMV_WARPS = 8;  // warps of a block, splitting K between them
-constexpr int GROUP = 128;     // the kernel's quantization group (int4_group of the Llama widths)
+constexpr int GROUP = 128;  // the kernel's quantization group (int4_group of the Llama widths)
 
 __device__ __forceinline__ float nib(uint32_t w, int j) {
   return (float)(((int)(w << (28 - 4 * j))) >> 28);  // sign-extend nibble j
 }
 
-// Nibbles j, j+1 of a word → a bf16 pair, exactly: each nibble, offset to
-// unsigned, becomes the low mantissa bits of the float 2^23 + u, from which
-// 2^23 + 8 is subtracted.
-__device__ __forceinline__ uint32_t nib2_to_bf16(uint32_t u, int j) {
-  const float off = 8388616.f;  // 2^23 + 8
-  return pack_bf16(__uint_as_float(((u >> (4 * j)) & 0xFu) | 0x4B000000u) - off,
-                   __uint_as_float(((u >> (4 * j + 4)) & 0xFu) | 0x4B000000u) - off);
+// Nibbles e and e + 4 of a word in offset binary (u = v + 8) → the bf16 pair
+// {v_e, v_e+4}, exactly: each nibble becomes the low mantissa bits of the
+// bf16 128 + u (one LOP3 for both halves), from which 136 is subtracted
+// (one bf16x2 fma by 1).
+__device__ __forceinline__ uint32_t nib2_to_bf16(uint32_t u, int e) {
+  const uint32_t b = ((u >> (4 * e)) & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));  // b * 1 - 136
+  return r;
 }
 
 template <typename TX>
@@ -63,68 +73,48 @@ __device__ void block_rinv(float* rinv, const TX* x, int rows, int m0, int M, in
   __syncthreads();
 }
 
-// One block per 16 output columns, as the int8 GEMV: lane (g, t) reads 16
-// packed bytes (32 values) of weight rows n0 + g and n0 + g + 8 at k =
-// c*128 + 32t of each 128-wide chunk c, which is one quantization group,
-// and the same 32 columns of x row g; the chunk's eight k16 products take
-// values 4s .. 4s+3 (step s), a permutation of k shared by the A and B
-// fragments. Each chunk's products go to a fresh float32 fragment that is
-// scaled by its group's scale and added to the output sums; the warps split
-// the chunks and add their sums in shared memory.
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-int4_gemv(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-          const float* __restrict__ scale, const float* __restrict__ g,
-          TO* __restrict__ out, int M, int N, int K, float eps) {
-  __shared__ float red[GEMV_WARPS][32][4];
-  __shared__ float rinv[GEMV_MAX_M];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t = lane & 3;
-  const int n0 = (int)blockIdx.x * 16;
-  const int na = n0 + gr, nb = n0 + gr + 8;
-  const int kh = K / 2;
-  if (g != nullptr) block_rinv(rinv, x, M, 0, M, K, eps);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = warp; c < K / GROUP; c += GEMV_WARPS) {
-    const int k = c * GROUP + 32 * t;
-    const uint4 wa = na < N ? *reinterpret_cast<const uint4*>(w + (size_t)na * kh + k / 2)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    const uint4 wb = nb < N ? *reinterpret_cast<const uint4*>(w + (size_t)nb * kh + k / 2)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    uint32_t xp[16];
-    load_x_pairs<16>(xp, x, M, K, gr, k, rinv, g);
-    const uint32_t ra[4] = {wa.x ^ 0x88888888u, wa.y ^ 0x88888888u, wa.z ^ 0x88888888u,
-                            wa.w ^ 0x88888888u};
-    const uint32_t rb[4] = {wb.x ^ 0x88888888u, wb.y ^ 0x88888888u, wb.z ^ 0x88888888u,
-                            wb.w ^ 0x88888888u};
+// The GEMV's int4 format. Lane (g, t) converts 16 packed bytes (32 values)
+// of weight rows g and g + 8 at k = 32t of each 128-wide chunk, which is one
+// quantization group. Word j of them holds k = 32t + 8j + e in nibble e; its
+// pairs {e, e + 4} are the A fragments of products 2j (e = 0, 1) and 2j + 1
+// (e = 2, 3), and x slot j holds x at the same k in the same pairing, so the
+// A and B fragments share one permutation of k. The chunk's eight products
+// go to a fresh float32 fragment, scaled by the group's scale and added.
+struct Int4 {
+  static constexpr int CH = GROUP, NI = 4;
+  static constexpr bool GROUPED = true;
+  static constexpr bool PROLOGUE = true;  // takes an RMSNorm gain
+
+  __device__ static uint4 pack_x(const float (&v)[8]) {
+    return make_uint4(pack_bf16(v[0], v[4]), pack_bf16(v[1], v[5]), pack_bf16(v[2], v[6]),
+                      pack_bf16(v[3], v[7]));
+  }
+  // 8 bf16 x (pairs {0, 1} .. {6, 7}) -> the pairs {0, 4} .. {3, 7}
+  __device__ static uint4 pair_bf16(const uint4& r) {
+    return make_uint4(__byte_perm(r.x, r.z, 0x5410), __byte_perm(r.x, r.z, 0x7632),
+                      __byte_perm(r.y, r.w, 0x5410), __byte_perm(r.y, r.w, 0x7632));
+  }
+
+  __device__ static void chunk(float (&acc)[4], const uint4& wa, const uint4& wb,
+                               const uint4 (&xv)[NI], float sa, float sb) {
+    const uint32_t ra[4] = {wa.x, wa.y, wa.z, wa.w}, rb[4] = {wb.x, wb.y, wb.z, wb.w};
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int j = (s & 1) * 4;
-      const uint32_t a[4] = {nib2_to_bf16(ra[s >> 1], j), nib2_to_bf16(rb[s >> 1], j),
-                             nib2_to_bf16(ra[s >> 1], j + 2), nib2_to_bf16(rb[s >> 1], j + 2)};
-      mma_bf16(part, a, xp[2 * s], xp[2 * s + 1]);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t ua = ra[j] ^ 0x88888888u, ub = rb[j] ^ 0x88888888u;
+      const uint32_t a0[4] = {nib2_to_bf16(ua, 0), nib2_to_bf16(ub, 0), nib2_to_bf16(ua, 1),
+                              nib2_to_bf16(ub, 1)};
+      mma_bf16(part, a0, xv[j].x, xv[j].y);
+      const uint32_t a1[4] = {nib2_to_bf16(ua, 2), nib2_to_bf16(ub, 2), nib2_to_bf16(ua, 3),
+                              nib2_to_bf16(ub, 3)};
+      mma_bf16(part, a1, xv[j].z, xv[j].w);
     }
-    const float* sg = scale + (size_t)c * N;
-    const float sa = na < N ? sg[na] : 0.f, sb = nb < N ? sg[nb] : 0.f;
     acc[0] = fmaf(part[0], sa, acc[0]);
     acc[1] = fmaf(part[1], sa, acc[1]);
     acc[2] = fmaf(part[2], sb, acc[2]);
     acc[3] = fmaf(part[3], sb, acc[3]);
   }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) red[warp][lane][e] = acc[e];
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < GEMV_WARPS; ++i) v += red[i][lane][e];
-    const int n = e < 2 ? na : nb, m = 2 * t + (e & 1);
-    if (n < N && m < M) store_out(out, (size_t)m * N + n, v);
-  }
-}
+};
 
 constexpr int BN4 = 64;
 
@@ -208,16 +198,14 @@ int4_gemm(const TX* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 template <typename TX, typename TO>
-void launch(const void* x, const uint8_t* w, const float* scale, const float* g,
-            void* out, int M, int N, int K, int group, float eps, cudaStream_t st) {
-  if (M <= GEMV_MAX_M) {
-    int4_gemv<TX, TO><<<(N + 15) / 16, GEMV_WARPS * 32, 0, st>>>(
-        (const TX*)x, w, scale, g, (TO*)out, M, N, K, eps);
-  } else {
-    dim3 grid((N + BN4 - 1) / BN4, (M + BM - 1) / BM);
-    int4_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, g,
-                                                      (TO*)out, M, N, K, group, eps);
-  }
+cudaError_t launch(const void* x, const uint8_t* w, const float* scale, const float* g,
+                   void* out, int M, int N, int K, int group, float eps, cudaStream_t st) {
+  if (M <= GEMV_MAX_M)
+    return gemv_launch<Int4, TX, TO>((const TX*)x, w, scale, g, (TO*)out, M, N, K, eps, st);
+  dim3 grid((N + BN4 - 1) / BN4, (M + BM - 1) / BM);
+  int4_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, g, (TO*)out, M, N,
+                                                    K, group, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -234,13 +222,15 @@ extern "C" int int4_matmul(const void* x, const void* w, const void* scale,
   const uint8_t* wp = (const uint8_t*)w;
   const float* s = (const float*)scale;
   const float* gs = (const float*)g;
+  cudaError_t err;
   if (x_bf16 && out_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<__nv_bfloat16, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
   else if (out_bf16)
-    launch<float, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<float, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
   else
-    launch<float, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
-  return (int)cudaGetLastError();
+    err = launch<float, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
+  const cudaError_t last = cudaGetLastError();  // also clears a launch error
+  return (int)(err != cudaSuccess ? err : last);
 }

@@ -16,11 +16,14 @@
 //    cores: the weights are the A operand (16 output columns per m16n8k16
 //    product) and x the B operand (its M <= 8 rows are the n8 side), so the
 //    work per weight byte, an int8 -> bf16 conversion by byte permutation and
-//    a share of one product, does not grow with M. A block of 8 warps owns
-//    16 columns and splits K between its warps; each lane streams 16-byte
-//    loads. (The first versions multiplied on the CUDA cores, converting
-//    every weight once per row of x: 13-22 us a call at M = 4 on the H100,
-//    growing with M, compute-bound.)
+//    a share of one product, does not grow with M. The kernel is the shared
+//    GEMV of quant_common.cuh with this file's format (`Int8`): 64-wide
+//    chunks, two per warp in flight, a cluster of up to 4 blocks splitting K
+//    where N is narrow (o, down), the column scale applied once to the
+//    cluster's sum. On an NVIDIA H100 80GB HBM3 at 700 W, one Vevo AR decode
+//    step (96 projections at M = 4) takes about 0.48 ms against the first
+//    version's 0.59 ms and a byte bound of 0.161 ms (tools/quant_ab.py;
+//    PERF.md has each projection's time).
 //  * GEMM, larger M (prefill, the flow-matching estimator at M = B * L): at
 //    thousands of rows it is bound by the tensor cores' bf16 rate. A block of
 //    8 warps owns a 128 x 128 tile; each 32-wide K step stages bf16(x) and the
@@ -35,72 +38,57 @@ namespace {
 
 using namespace quant;
 
-constexpr int GEMV_WARPS = 8;  // warps of a block, splitting K between them
-
 __device__ __forceinline__ float i8(uint32_t w, int j) {
   return (float)(int8_t)((w >> (8 * j)) & 0xFF);
 }
 
 // Four int8 (one 32-bit word) → bf16 pairs {byte 0, byte 1}, {byte 2, byte 3},
 // exactly: each byte, offset to unsigned, becomes the low mantissa bits of
-// the float 2^23 + u, from which 2^23 + 128 is subtracted.
+// the float 2^23 + u, from which 2^23 + 128 is subtracted; the difference,
+// an integer of at most 7 bits, is its float's upper half, so two are
+// paired by one byte permutation (no float -> bf16 conversion).
+__device__ __forceinline__ uint32_t hi_halves(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
 __device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
   const uint32_t u = w ^ 0x80808080u;
   const float off = 8388736.f;  // 2^23 + 128
-  lo = pack_bf16(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - off,
+  lo = hi_halves(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - off,
                  __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - off);
-  hi = pack_bf16(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - off,
+  hi = hi_halves(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - off,
                  __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - off);
 }
 
-// One block per 16 output columns. Lane (g, t) = (lane / 4, lane % 4) reads
-// 16 consecutive bytes of weight rows n0 + g and n0 + g + 8 at k = c*64 +
-// 16t of each 64-wide chunk c, and the same 16 columns of x row g; the four
-// k16 products of the chunk take bytes 4s .. 4s+3 of those (step s), a
-// permutation of k that the A (weights) and B (x) fragments share, so the
-// sum is the same. The warps split the chunks and add their float32 partial
-// sums in shared memory.
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-int8_gemv(const TX* __restrict__ x, const int8_t* __restrict__ w,
-          const float* __restrict__ scale, TO* __restrict__ out, int M, int N, int K) {
-  __shared__ float red[GEMV_WARPS][32][4];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = (int)blockIdx.x * 16;
-  const int na = n0 + g, nb = n0 + g + 8;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-  for (int c = warp; c < K / 64; c += GEMV_WARPS) {
-    const int k = c * 64 + 16 * t;
-    const uint4 wa = na < N ? *reinterpret_cast<const uint4*>(w + (size_t)na * K + k)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    const uint4 wb = nb < N ? *reinterpret_cast<const uint4*>(w + (size_t)nb * K + k)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    uint32_t xp[8];
-    load_x_pairs<8>(xp, x, M, K, g, k, nullptr, nullptr);
+// The GEMV's int8 format. Lane (g, t) converts 16 consecutive bytes of weight
+// rows g and g + 8 at k = 16t of each 64-wide chunk, and takes the same 16
+// columns of x row g (two slots, in order); the chunk's four k16 products
+// take bytes 4s .. 4s+3 (step s), a permutation of k that the A (weights)
+// and B (x) fragments share, so the sum is the same.
+struct Int8 {
+  static constexpr int CH = 64, NI = 2;
+  static constexpr bool GROUPED = false;
+  static constexpr bool PROLOGUE = false;  // takes an RMSNorm gain
+
+  __device__ static uint4 pack_x(const float (&v)[8]) {
+    return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                      pack_bf16(v[6], v[7]));
+  }
+  __device__ static uint4 pair_bf16(const uint4& r) { return r; }  // 8 bf16 x, in order
+
+  __device__ static void chunk(float (&acc)[4], const uint4& wa, const uint4& wb,
+                               const uint4 (&xv)[NI], float, float) {
     const uint32_t ra[4] = {wa.x, wa.y, wa.z, wa.w}, rb[4] = {wb.x, wb.y, wb.z, wb.w};
+    const uint32_t xb[8] = {xv[0].x, xv[0].y, xv[0].z, xv[0].w,
+                            xv[1].x, xv[1].y, xv[1].z, xv[1].w};
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       uint32_t a[4];
       i8x4_to_bf16(ra[s], a[0], a[2]);
       i8x4_to_bf16(rb[s], a[1], a[3]);
-      mma_bf16(acc, a, xp[2 * s], xp[2 * s + 1]);
+      mma_bf16(acc, a, xb[2 * s], xb[2 * s + 1]);
     }
   }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) red[warp][lane][e] = acc[e];
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < GEMV_WARPS; ++i) v += red[i][lane][e];
-    const int n = e < 2 ? na : nb, m = 2 * t + (e & 1);
-    if (n < N && m < M) store_out(out, (size_t)m * N + n, v * scale[n]);
-  }
-}
+};
 
 constexpr int BN8 = 128;
 
@@ -169,16 +157,15 @@ int8_gemm(const TX* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <typename TX, typename TO>
-void launch(const void* x, const int8_t* w, const float* scale, void* out, int M,
-            int N, int K, cudaStream_t st) {
-  if (M <= GEMV_MAX_M) {
-    int8_gemv<TX, TO><<<(N + 15) / 16, GEMV_WARPS * 32, 0, st>>>(
-        (const TX*)x, w, scale, (TO*)out, M, N, K);
-  } else {
-    dim3 grid((N + BN8 - 1) / BN8, (M + BM - 1) / BM);
-    int8_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, (TO*)out,
-                                                      M, N, K);
-  }
+cudaError_t launch(const void* x, const int8_t* w, const float* scale, void* out, int M,
+                   int N, int K, cudaStream_t st) {
+  if (M <= GEMV_MAX_M)
+    return gemv_launch<Int8, TX, TO>((const TX*)x, (const uint8_t*)w, scale, nullptr,
+                                     (TO*)out, M, N, K, 0.f, st);
+  dim3 grid((N + BN8 - 1) / BN8, (M + BM - 1) / BM);
+  int8_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, (TO*)out, M, N,
+                                                    K);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -193,9 +180,11 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* wq = (const int8_t*)w;
   const float* s = (const float*)scale;
-  if (x_bf16 && out_bf16) launch<__nv_bfloat16, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
-  else if (x_bf16) launch<__nv_bfloat16, float>(x, wq, s, out, M, N, K, st);
-  else if (out_bf16) launch<float, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
-  else launch<float, float>(x, wq, s, out, M, N, K, st);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if (x_bf16 && out_bf16) err = launch<__nv_bfloat16, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
+  else if (x_bf16) err = launch<__nv_bfloat16, float>(x, wq, s, out, M, N, K, st);
+  else if (out_bf16) err = launch<float, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
+  else err = launch<float, float>(x, wq, s, out, M, N, K, st);
+  const cudaError_t last = cudaGetLastError();  // also clears a launch error
+  return (int)(err != cudaSuccess ? err : last);
 }

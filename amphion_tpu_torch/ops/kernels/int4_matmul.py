@@ -96,8 +96,9 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (M, K) float32 or bf16 @ packed int4 w_p (N, K/2), scale (K/group, N)
     → (M, N) in ``out_dtype``; ``rms_scale`` (K,) adds the RMSNorm prologue.
-    M ≤ 8 takes the kernel's GEMV path, larger M its tiled GEMM; both read
-    the whole row of x in one block when normalising it."""
+    M ≤ 8 takes the kernel's GEMV path, larger M its tiled GEMM. To
+    normalise x, a GEMM block reads whole rows; the GEMV's blocks each sum
+    their own K range and add the sums across their cluster."""
     if x.ndim != 2 or w_p.ndim != 2 or x.shape[1] != 2 * w_p.shape[1]:
         raise ValueError(f"int4_matmul shapes x {tuple(x.shape)} w_p {tuple(w_p.shape)}")
     m, k = x.shape
@@ -126,6 +127,8 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     g = None
     if rms_scale is not None:
         g = rms_scale.float().contiguous()
+        if g.data_ptr() % 16:  # and the gain too
+            g = g.clone()
     for name, t in (("w_p", w_p), ("scale", scale), ("rms_scale", g)):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {x.device}")

@@ -32,7 +32,8 @@ at the full width of ``config/vevo.json`` with random weights from
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
 plain versions on the inputs the voice paths gave them (decode, AR prefill
-and flow-matching rows, with and without the RMSNorm prologue) and the
+and flow-matching rows, with and without the RMSNorm prologue; at the
+decode rows also relaunched and row by row, bit for bit) and the
 anti-aliased SnakeBeta kernel on the inputs of one 10 s file's 73
 activations. It then
 measures what padding each voice decode to ``max_batch`` rows costs and
@@ -337,6 +338,7 @@ def slice_phase(seed: int, mel_k, flash_k) -> dict:
 KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd", "bwd_d"),
                  ("mel", "mel_kernel"),
                  ("int8_matmul", "int8_ge"), ("int4_matmul", "int4_ge"),
+                 ("int8_matmul", "::Int8,"), ("int4_matmul", "::Int4,"),  # the shared GEMV
                  ("decode_attn_int8", "decode_"), ]
 LIBRARY_GEMM = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 
@@ -462,6 +464,7 @@ AR_LAYERS, AR_HIDDEN, AR_HEADS, AR_FFN = 24, 1280, 20, 4096  # config/vevo.json,
 FM_LAYERS, FM_HIDDEN, FM_STEPS = 16, 1024, 32
 AR_PROJ = [(AR_HIDDEN, 3 * AR_HIDDEN), (AR_HIDDEN, AR_HIDDEN), (AR_HIDDEN, 2 * AR_FFN),
            (AR_FFN, AR_HIDDEN)]  # (K, N) of qkv, o, gateup, down
+PROLOGUE_PROJ = ("qkv", "gateup")  # the projections AMPHION_FUSED_RMS=1 normalises in #5
 FM_QKV = (6144, FM_HIDDEN, 3 * FM_HIDDEN)  # (M, K, N): 4 * 1536 rows, a timbre-sized FM batch
 DECODE_ROWS = (1, 2, 4, 8, 16)  # decode batch rows of the padding phase
 
@@ -556,13 +559,14 @@ def path_quant_check(label: str, rec: ProjRecorder, int4: bool) -> float:
     """Kernel 4 (or 5) against its plain version on every recorded input
     of the main path, at the output dtype the path asked for: float32 within
     `quant_close`, and the bf16 output bit-equal to the float32 one rounded.
-    At the decode rows (M <= 8) it also reports whether row 0 of the GEMV's
-    output keeps its bits when row 0 is sent alone. Returns the largest
-    float32 error."""
+    At the decode rows (M <= 8) the GEMV must also give the same bits when
+    relaunched, and each row the same bits alone (M = 1), at the recorded
+    rows and among 8 rows (the recorded ones, then the same reversed), in
+    float32 and in the path's dtype. Returns the largest float32 error."""
     from amphion_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_ref
     from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
-    worst, row_inv = 0.0, []
+    worst, n_gemv = 0.0, 0
     for (name, m, pro), (mod, x, rms) in sorted(rec.seen.items(), key=lambda kv: kv[0]):
         if int4:
             def run(fn, xx, dt):
@@ -581,10 +585,20 @@ def path_quant_check(label: str, rec: ProjRecorder, int4: bool) -> float:
         check(f"{label} path {name} M={m} K={k} N={n} rms_prologue={pro}", ok and same,
               f"{detail}; {x.dtype} output equals the float32 one rounded: {same}")
         if m <= 8:
-            row_inv.append(bool(torch.equal(run(kernel, x[:1], x.dtype)[0], out_bf[0])))
-    if row_inv:
-        log(f"  {label} GEMV row 0 alone vs at the decode rows: bit-equal in "
-            f"{sum(row_inv)}/{len(row_inv)} projections")
+            n_gemv += 1
+            x8 = torch.cat([x, x.flip(0)])[:8]
+            relaunch = rows = True
+            for dt, first in ((torch.float32, out), (x.dtype, out_bf)):
+                relaunch &= bool(torch.equal(run(kernel, x, dt), first))
+                full = run(kernel, x8, dt)
+                rows &= bool(torch.equal(full[:m], first)) and all(
+                    torch.equal(run(kernel, x[r:r + 1], dt)[0], first[r]) for r in range(m))
+            check(f"{label} path {name} M={m} rms_prologue={pro} GEMV bits", relaunch and rows,
+                  f"relaunch bit-equal {relaunch}; each row alone, at M={m} and among 8 "
+                  f"rows bit-equal {rows}")
+    if n_gemv:
+        log(f"  {label}: the GEMV's bits held on relaunch and row by row in {n_gemv} "
+            "recorded projections")
     return worst
 
 
@@ -980,8 +994,11 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
 
     The matmul rows time one decode step's projections (24 layers x qkv, o,
     gateup, down at M = 4 rows, the pipelines' own weights, 534.7 MB in
-    int8, more than the L2 holds), bound by their bytes; the ``fm_gemm_*``
-    keys time the flow-matching qkv projection at the batch's B * L rows,
+    int8, more than the L2 holds), bound by their bytes, and each projection
+    alone at M = 1, 4 and 8 beside its own bound (``per_projection_*``, 24
+    calls a replay); kernel 5's row also times the step and its qkv and
+    gateup with the RMSNorm prologue as AMPHION_FUSED_RMS=1 runs them
+    (``prologue_*``); the ``fm_gemm_*`` keys time the flow-matching qkv projection at the batch's B * L rows,
     bound by bf16 operations. Decode attention is timed at the
     single-utterance cache with valid_len at its middle step."""
     from amphion_tpu_torch.ops.kernels.decode_attention import (
@@ -1046,20 +1063,40 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
             x = xs[q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)]
             return fn(x, q.kernel_q, q.scale, *extra(q), out_dtype=dt)
 
-        per_shape = {}
+        per_shape, per_bound, pro_shape = {}, {}, {}
+        gg = torch.Generator(dev).manual_seed(3)
+        gains = {k: 1 + 0.1 * torch.randn((k,), generator=gg, device=dev)
+                 for k in (AR_HIDDEN, AR_FFN)}
         for rows_m in (1, m, 8):
             xm = {k: torch.randn((rows_m, k), generator=g, device=dev).bfloat16()
                   for k in (AR_HIDDEN, AR_FFN)}
             for i, label in enumerate(("qkv", "o", "gateup", "down")):
                 sub = mods[i::4]
                 k_in = sub[0].kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)
-                per_shape[f"M={rows_m} {label}"] = graph_ms(lambda: [
+                key = f"M={rows_m} {label}"
+                per_shape[key] = graph_ms(lambda: [
                     mm(xm[k_in], q.kernel_q, q.scale, *extra(q), out_dtype=torch.bfloat16)
                     for q in sub]) / len(sub) * 1e3
+                n_out = sub[0].kernel_q.shape[0]
+                per_bound[key] = _bound(2.0 * rows_m * k_in * n_out, sum(
+                    q.kernel_q.numel() + 4 * q.scale.numel() for q in sub) / len(sub)
+                    + 2 * rows_m * (k_in + n_out))[0] * 1e3
+                if name == "int4_matmul" and rows_m == m and label in PROLOGUE_PROJ:
+                    pro_shape[key] = graph_ms(lambda: [
+                        mm(xm[k_in], q.kernel_q, q.scale, q.group, gains[k_in], 1e-6,
+                           out_dtype=torch.bfloat16) for q in sub]) / len(sub) * 1e3
         log(f"timing {name}: us per call by projection and rows (CUDA graph, "
-            f"{len(mods) // 4} layers' weights each): " + json.dumps(per_shape))
+            f"{len(mods) // 4} layers' weights each): " + json.dumps(per_shape)
+            + "; bound us " + json.dumps(per_bound)
+            + (f"; with the RMSNorm prologue {json.dumps(pro_shape)}" if pro_shape else ""))
         eager_ms = gpu_ms(lambda: [call(mm, q) for q in mods])
         k_ms = graph_ms(lambda: [call(mm, q) for q in mods])
+        pro_ms = None
+        if name == "int4_matmul":  # the step as AMPHION_FUSED_RMS=1 runs it
+            pro_ms = graph_ms(lambda: [
+                mm(xs[q.kernel_q.shape[1] * 2], q.kernel_q, q.scale, q.group,
+                   gains[q.kernel_q.shape[1] * 2] if i % 4 in (0, 2) else None, 1e-6,
+                   out_dtype=torch.bfloat16) for i, q in enumerate(mods)])
         p_ms = graph_ms(lambda: [call(ref, q) for q in mods], iters=5)
         nbytes = sum(q.kernel_q.numel() + 4 * q.scale.numel() for q in mods)
         nbytes += sum(2 * m * (q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)
@@ -1082,14 +1119,19 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
         fm_lib = library(name, [fm], lambda q: xf)
         log(f"timing {name}: one decode step ({len(mods)} projections, M={m}, "
             f"{nbytes / 1e6:.1f} MB, device time of a CUDA-graph replay) kernel {k_ms} ms "
+            + (f"(with the RMSNorm prologue on qkv and gateup {pro_ms} ms) " if pro_ms else "")
+            + 
             f"({eager_ms} ms launched one by one from Python), plain {p_ms} ms, library {lib} ms, "
             f"bound {bound} ms ({by}); FM qkv ({rows_fm}, {FM_HIDDEN}) -> {n_fm}: kernel "
             f"{fm_ms} ms, plain {fm_plain} ms, library {fm_lib} ms, bound {fm_bound} ms ({fm_by})")
         err = max(v["path_err"], fused["prologue_err"] if name == "int4_matmul" else 0.0)
+        more = ({"prologue_ms": pro_ms, "prologue_per_projection_us": pro_shape}
+                if pro_ms else {})
         rows.append(_row(name, src, line, v["launches"][name], err, k_ms, p_ms, bound,
-                         by, lib, fm_gemm_ms=fm_ms, fm_gemm_plain_ms=fm_plain,
-                         fm_gemm_bound_ms=fm_bound, fm_gemm_library_ms=fm_lib,
-                         fm_gemm_rows=rows_fm))
+                         by, lib, per_projection_us=per_shape,
+                         per_projection_bound_us=per_bound, **more, fm_gemm_ms=fm_ms,
+                         fm_gemm_plain_ms=fm_plain, fm_gemm_bound_ms=fm_bound,
+                         fm_gemm_library_ms=fm_lib, fm_gemm_rows=rows_fm))
 
     # decode attention at the single-utterance cache, middle step
     s_len, d = fused["cache_len"], AR_HIDDEN // AR_HEADS

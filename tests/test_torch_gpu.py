@@ -120,14 +120,18 @@ def test_flash_kernel_rejects_unsupported_head_dim(cuda):
 
 
 # -- weight-only int8 / int4 matmuls and int8 decode attention ----------------
-# M = 4 is the Vevo AR decode batch (GEMV path), 1000 a ragged prefill and
-# 6144 the flow-matching estimator (GEMM path); N 1000 and 3000 are not
-# multiples of the GEMM's tile. Both paths sum in float32, in another order
-# than the plain version: max|err| <= 1e-4 of max|ref| in float32 output,
-# and the bf16 output within one bf16 rounding (2**-8 relative).
+# M = 4 is the Vevo AR decode batch (GEMV path: qkv, o, gateup and down of
+# the AR decoder), 1000 a ragged prefill and 6144 the flow-matching
+# estimator (GEMM path); N 1000 and 3000 are not multiples of the GEMM's
+# tile. (2, 2176, 1000) splits K unevenly between the blocks of a GEMV
+# cluster (34 int8 chunks over 4 blocks, 17 int4 groups over 3) and ends in
+# a partial 16-column tile. Both paths sum in float32, in another order than
+# the plain version: max|err| <= 1e-4 of max|ref| in float32 output, and
+# the bf16 output within one bf16 rounding (2**-8 relative).
 
 MM_CASES = [(4, 1280, 3840), (1, 1280, 1280), (8, 4096, 1280), (3, 1024, 1000),
-            (1000, 1280, 3000), (6144, 1024, 3072), (200, 4096, 1280)]
+            (1000, 1280, 3000), (6144, 1024, 3072), (200, 4096, 1280),
+            (4, 1280, 8192), (4, 4096, 1280), (2, 2176, 1000)]
 
 
 def _mm_close(out, ref):
@@ -179,6 +183,53 @@ def test_int4_matmul_kernel_matches_plain(cuda, m, k, n, rms):
             assert ((out.float() - ref.float()).norm() / ref.float().norm()).item() <= 1e-3
         else:
             _mm_close(out, ref)
+
+
+# The GEMV's two properties the decode relies on: a relaunch gives the same
+# bits, and row r of the output does not depend on M or on the other rows
+# (row r at M = 1 and M = 4 equals row r at M = 8, bit for bit), with and
+# without int4's RMSNorm prologue, in float32 and bf16 output.
+GEMV_SHAPES = [(1280, 3840), (1280, 1280), (1280, 8192), (4096, 1280), (2176, 1000)]
+
+
+def _quant_weights(cuda, kind, k, n, seed):
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, pack_int4, quantize_weight_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
+
+    g = torch.Generator(cuda).manual_seed(seed)
+    w = (torch.randn((n, k), generator=g, device=cuda) * 0.05).bfloat16()
+    x = torch.randn((8, k), generator=g, device=cuda).bfloat16()
+    if kind == "int8":
+        w_q, scale = quantize_weight_int8(w)
+        return x, lambda xx, dt: int8_matmul(xx, w_q, scale, dt)
+    w_int, scale = quantize_weight_int4(w, 128)
+    w_p = pack_int4(w_int)
+    gain = (1 + 0.1 * torch.randn((k,), generator=g, device=cuda)) if kind == "int4_rms" else None
+    return x, lambda xx, dt: int4_matmul(xx, w_p, scale, 128, gain, 1e-6, dt)
+
+
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_rms"])
+def test_quant_gemv_relaunch_is_bit_equal(cuda, kind, k, n):
+    x, mm = _quant_weights(cuda, kind, k, n, k + n)
+    for m in (1, 4, 8):
+        for dt in (torch.float32, torch.bfloat16):
+            first = mm(x[:m], dt)
+            again = [mm(x[:m], dt) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(first, a) for a in again), (m, dt)
+
+
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_rms"])
+def test_quant_gemv_rows_do_not_depend_on_m(cuda, kind, k, n):
+    x, mm = _quant_weights(cuda, kind, k, n, 3 * k + n)
+    for dt in (torch.float32, torch.bfloat16):
+        full = mm(x, dt)
+        assert torch.equal(mm(x[:4], dt), full[:4]), dt
+        for r in range(8):
+            assert torch.equal(mm(x[r:r + 1], dt)[0], full[r]), (r, dt)
 
 
 @pytest.mark.parametrize("b,h,s,d,lens", [(1, 20, 2200, 64, [1733]),
