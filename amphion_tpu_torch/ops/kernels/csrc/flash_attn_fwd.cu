@@ -55,12 +55,24 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using fa::ex2;
 using fa::NEG;
 using fa::smem_addr;
+using hop::desc_sw128;
+using hop::fence_regs;
+using hop::mbar_arrive;
+using hop::mbar_expect_tx;
+using hop::mbar_init;
+using hop::mbar_wait;
+using hop::wgmma_commit;
+using hop::wgmma_fence;
+using hop::wgmma_rs;
+using hop::wgmma_ss;
+using hop::wgmma_wait_all;
 
 // ------------------------------------------------------------- float32 path
 
@@ -250,109 +262,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait for the barrier's phase of this parity to complete. A wait that
-// lasts billions of cycles can only be a fault: trap, so the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 33)) __trap();
-  }
-}
-
-// One box {64 elements of D, 1 head, 64 rows, 1 batch} of a 4-D map into
-// shared memory, completing `bytes` on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int d0,
-                                         int head, int row, int batch, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head), "r"(row),
-         "r"(batch), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128B-swizzled tile (rows of 128
-// bytes, 8-row groups 1024 bytes apart). K-major (Q, K): the 8-row groups
-// run along M/N and a k16 step is +32 bytes inside the row. MN-major (V,
-// read transposed): rows are k, and a 64-element N extent fits one swizzle
-// row, so both offset fields name the 8-row group stride.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem,
-// MN-major: read through the transpose bit)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -396,14 +305,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       mbar_expect_tx(qbar, 2 * NB * BOX);
       for (int w = 0; w < 2; ++w)
         for (int nb = 0; nb < NB; ++nb)
-          tma_load(sbase + L::Q + (w * NB + nb) * BOX, &tq, nb * 64, h, q0 + w * 64, b, qbar);
+          hop::tma_load_4d(sbase + L::Q + (w * NB + nb) * BOX, &tq, nb * 64, h, q0 + w * 64, b, qbar);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(empty + 8 * s, (j / STAGES - 1) & 1);
         mbar_expect_tx(full + 8 * s, 2 * NB * BOX);
         for (int nb = 0; nb < NB; ++nb) {
-          tma_load(sbase + L::K + (s * NB + nb) * BOX, &tk, nb * 64, kvh, j * BK, b, full + 8 * s);
-          tma_load(sbase + L::V + (s * NB + nb) * BOX, &tv, nb * 64, kvh, j * BK, b, full + 8 * s);
+          hop::tma_load_4d(sbase + L::K + (s * NB + nb) * BOX, &tk, nb * 64, kvh, j * BK, b, full + 8 * s);
+          hop::tma_load_4d(sbase + L::V + (s * NB + nb) * BOX, &tv, nb * 64, kvh, j * BK, b, full + 8 * s);
         }
       }
     }
@@ -554,34 +463,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
 // ------------------------------------------------------------------- host
 
-// cuTensorMapEncodeTiled is a driver function: reach it through the
-// runtime's entry-point query, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                      cudaEnableDefault, &res);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                             &res);
-#endif
-    if (rc == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // A (B, L, heads, D) bf16 tensor as a 4-D map {D, heads, L, B}; box
 // {64, 1, 64, 1}, 128-byte swizzle, zeros outside.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int heads, int D) {
-  EncodeTiled enc = encode_tiled();
+  hop::EncodeTiled enc = hop::encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,

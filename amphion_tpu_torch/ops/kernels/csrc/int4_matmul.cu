@@ -31,12 +31,18 @@
 //    byte bound of 0.0861 ms (tools/quant_ab.py; PERF.md has each
 //    projection's time).
 //  * GEMM, larger M (prefill, the flow-matching estimator): bound by the
-//    tensor cores. A block of 8 warps owns a 128 x 64 tile; each 32-wide K
-//    step (always inside one group) stages bf16(x) and the weight tile
-//    unpacked to bf16 in shared memory and runs mma.sync m16n8k16 into a
-//    per-group float32 accumulator, which is scaled and added to the output
-//    accumulator at each group boundary; the next step's loads go to
-//    registers while the current step computes (quant_common.cuh).
+//    tensor cores. The kernel is the shared GEMM of quant_common.cuh
+//    (`qmm_wgmma`) with this file's format: each TMA-fed stage is one
+//    128-wide group, whose eight wgmma m64n128k16 products (the weights
+//    converted into register A fragments in natural k order,
+//    `Int4::frags`, two halves of four k16 steps) land in a fresh float32
+//    partial that is scaled by the group's column scales and added, as the
+//    TPU kernel scales each group's dot. With the prologue, or float32 x, x
+//    is first written to a bf16 scratch, normalised over its whole row. On
+//    an NVIDIA H100 80GB HBM3 at 700 W the flow-matching qkv takes about
+//    0.081 ms against the first version's 0.33 ms,
+//    torch._weight_int4pack_mm's 1.17 ms and a bound of 0.033 ms
+//    (tools/quant_ab.py; PERF.md has each projection's time).
 
 #include "quant_common.cuh"
 
@@ -45,10 +51,6 @@ namespace {
 using namespace quant;
 
 constexpr int GROUP = 128;  // the kernel's quantization group (int4_group of the Llama widths)
-
-__device__ __forceinline__ float nib(uint32_t w, int j) {
-  return (float)(((int)(w << (28 - 4 * j))) >> 28);  // sign-extend nibble j
-}
 
 // Nibbles e and e + 4 of a word in offset binary (u = v + 8) → the bf16 pair
 // {v_e, v_e+4}, exactly: each nibble becomes the low mantissa bits of the
@@ -60,17 +62,6 @@ __device__ __forceinline__ uint32_t nib2_to_bf16(uint32_t u, int e) {
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
       : "=r"(r) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));  // b * 1 - 136
   return r;
-}
-
-template <typename TX>
-__device__ void block_rinv(float* rinv, const TX* x, int rows, int m0, int M, int K,
-                           float eps) {
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += nwarps) {
-    const float v = m0 + r < M ? row_rinv(x + (size_t)(m0 + r) * K, K, eps) : 0.f;
-    if ((threadIdx.x & 31) == 0) rinv[r] = v;
-  }
-  __syncthreads();
 }
 
 // The GEMV's int4 format. Lane (g, t) converts 16 packed bytes (32 values)
@@ -114,123 +105,98 @@ struct Int4 {
     acc[2] = fmaf(part[2], sb, acc[2]);
     acc[3] = fmaf(part[3], sb, acc[3]);
   }
-};
 
-constexpr int BN4 = 64;
+  // The GEMM: a stage is one 128-wide group, 64 bytes of a weight row.
+  static constexpr int KS = GROUP;
 
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(GEMM_THREADS)
-int4_gemm(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-          const float* __restrict__ scale, const float* __restrict__ g,
-          TO* __restrict__ out, int M, int N, int K, int group, float eps) {
-  constexpr int WN = BN4 / 2;
-  __shared__ __align__(16) __nv_bfloat16 As[BM * AP];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN4 * AP];
-  __shared__ float rinv[BM];
-  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int gq = lane >> 2, t = lane & 3;
-  const int kh = K / 2;
-  if (g != nullptr) block_rinv(rinv, x, BM, m0, M, K, eps);
-  float acc[2][WN / 8][4], gacc[2][WN / 8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = gacc[i][j][e] = 0.f;
-
-  // weight staging: thread -> row r, 8 consecutive k (4 bytes) at c
-  const int r = threadIdx.x >> 2, c = (threadIdx.x & 3) * 8;
-  float av[16];
-  uint32_t ww = 0u;
-  auto load_w = [&](int k0) {
-    ww = n0 + r < N ? *reinterpret_cast<const uint32_t*>(w + (size_t)(n0 + r) * kh + (k0 + c) / 2)
-                    : 0u;
-  };
-  load_a(av, x, M, K, m0, 0);
-  load_w(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous step's tiles
-    store_a(As, av, k0, rinv, g);
-    *reinterpret_cast<uint4*>(Bs + r * AP + c) =
-        make_uint4(pack_bf16(nib(ww, 0), nib(ww, 1)), pack_bf16(nib(ww, 2), nib(ww, 3)),
-                   pack_bf16(nib(ww, 4), nib(ww, 5)), pack_bf16(nib(ww, 6), nib(ww, 7)));
-    __syncthreads();
-    if (k0 + BK < K) {  // the next step's loads fly during these products
-      load_a(av, x, M, K, m0, k0 + BK);
-      load_w(k0 + BK);
-    }
-    mma_tile<WN>(gacc, As, Bs, wm, wn);
-    if ((k0 + BK) % group == 0) {  // group boundary: scale its partial sums
-      const float* sg = scale + (size_t)(k0 / group) * N;
-#pragma unroll
-      for (int j = 0; j < WN / 8; ++j) {
-        const int col = n0 + wn * WN + j * 8 + 2 * t;
-        const float s0 = col < N ? sg[col] : 0.f, s1 = col + 1 < N ? sg[col + 1] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          acc[i][j][0] = fmaf(gacc[i][j][0], s0, acc[i][j][0]);
-          acc[i][j][1] = fmaf(gacc[i][j][1], s1, acc[i][j][1]);
-          acc[i][j][2] = fmaf(gacc[i][j][2], s0, acc[i][j][2]);
-          acc[i][j][3] = fmaf(gacc[i][j][3], s1, acc[i][j][3]);
-          gacc[i][j][0] = gacc[i][j][1] = gacc[i][j][2] = gacc[i][j][3] = 0.f;
-        }
-      }
-    }
+  // Two's-complement nibbles e and e + 4 of u -> the bf16 pair {v_e, v_e+4},
+  // exactly: (nibble ^ 8) becomes the low mantissa bits of the bf16 128 +
+  // (v + 8) by one LOP3 (the XOR rides on the OR's constant), from which
+  // 136 is subtracted (one bf16x2 fma by 1).
+  __device__ static uint32_t nib2s_to_bf16(uint32_t u, int e) {
+    const uint32_t b = ((u >> (4 * e)) & 0x000F000Fu) ^ 0x43084308u;
+    uint32_t r;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(r) : "r"(b), "r"(0x3F803F80u), "r"(0xC308C308u));  // b * 1 - 136
+    return r;
   }
 
+  // A fragments of k16 steps S0 ... S0 + NS - 1 (S0 and NS even) of a
+  // stage for weight rows ra, rb of the 64B-swizzled tile at wt: step s
+  // covers bytes 8s ... 8s + 7 of a row (chunk s / 2, words 2 (s % 2) and
+  // 2 (s % 2) + 1), and lane (g, t) needs byte t of each word (k = 16s + 2t,
+  // 2t + 1 and 16s + 2t + 8, 2t + 9). Each lane reads its rows' whole chunk
+  // (the quad's four lanes read the same 16 bytes), puts its two bytes side
+  // by side with one byte permutation, v = {b0, b1}, and spreads them as
+  // v | v << 12, so that nibbles 0 and 4 hold b0's pair and nibbles 2 and 6
+  // b1's.
+  template <int S0, int NS>
+  __device__ static void frags(uint32_t (&a)[NS][4], uint32_t wt, int ra, int rb, int t) {
+    const uint32_t pa = wt + sw64(ra, 0), pb = wt + sw64(rb, 0);
+    const uint32_t sel = (uint32_t)t | ((uint32_t)(4 + t) << 4);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j) {
-      const int col = n0 + wn * WN + j * 8 + 2 * t;
+    for (int c = 0; c < NS / 2; ++c) {
+      const uint32_t off = (uint32_t)(S0 / 2 + c) << 4;
+      const uint4 qa = lds128(pa ^ off), qb = lds128(pb ^ off);
+      const uint32_t wa[4] = {qa.x, qa.y, qa.z, qa.w}, wb[4] = {qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + i * 16 + gq + 8 * h;
-        if (row >= M) continue;
-        if (col < N) store_out(out, (size_t)row * N + col, acc[i][j][2 * h]);
-        if (col + 1 < N) store_out(out, (size_t)row * N + col + 1, acc[i][j][2 * h + 1]);
+        const uint32_t va = __byte_perm(wa[2 * h], wa[2 * h + 1], sel) & 0xFFFFu;
+        const uint32_t vb = __byte_perm(wb[2 * h], wb[2 * h + 1], sel) & 0xFFFFu;
+        const uint32_t ua = va | (va << 12), ub = vb | (vb << 12);
+        uint32_t (&f)[4] = a[2 * c + h];
+        f[0] = nib2s_to_bf16(ua, 0);
+        f[1] = nib2s_to_bf16(ub, 0);
+        f[2] = nib2s_to_bf16(ua, 2);
+        f[3] = nib2s_to_bf16(ub, 2);
       }
     }
   }
-}
+};
 
 template <typename TX, typename TO>
 cudaError_t launch(const void* x, const uint8_t* w, const float* scale, const float* g,
-                   void* out, int M, int N, int K, int group, float eps, cudaStream_t st) {
+                   void* out, int M, int N, int K, float eps, __nv_bfloat16* xs,
+                   cudaStream_t st) {
   if (M <= GEMV_MAX_M)
     return gemv_launch<Int4, TX, TO>((const TX*)x, w, scale, g, (TO*)out, M, N, K, eps, st);
-  dim3 grid((N + BN4 - 1) / BN4, (M + BM - 1) / BM);
-  int4_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, g, (TO*)out, M, N,
-                                                    K, group, eps);
-  return cudaGetLastError();
+  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+  if (g != nullptr || sizeof(TX) == 4) {  // normalised or rounded into the scratch first
+    if (xs == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t err = prep_launch<Int4, TX>((const TX*)x, g, xs, M, K, eps, st);
+    if (err != cudaSuccess) return err;
+    xb = xs;
+  }
+  return gemm_launch<Int4, TO>(xb, w, scale, (TO*)out, M, N, K, st);
 }
 
 }  // namespace
 
 // x (M, K) f32 (x_bf16 = 0) or bf16; w (N, K/2) packed int4; scale
 // (K/group, N) f32; g (K,) f32 or null (no RMS prologue); out (M, N) f32
-// (out_bf16 = 0) or bf16; all contiguous; group == 128, K % 128 == 0.
-// Returns cudaGetLastError().
+// (out_bf16 = 0) or bf16; xs (M, K) bf16 scratch for the GEMM's x, needed
+// when M > 8 and x is f32 or g is given, else null; all contiguous, x, w and
+// g 16-byte aligned; group == 128, K % 128 == 0. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what the kernels do not
+// take.
 extern "C" int int4_matmul(const void* x, const void* w, const void* scale,
                            const void* g, void* out, int M, int N, int K, int group,
-                           int x_bf16, int out_bf16, float eps, void* stream) {
+                           int x_bf16, int out_bf16, float eps, void* xs, void* stream) {
   if (group != GROUP || K % GROUP) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* wp = (const uint8_t*)w;
   const float* s = (const float*)scale;
   const float* gs = (const float*)g;
+  __nv_bfloat16* xb = (__nv_bfloat16*)xs;
   cudaError_t err;
   if (x_bf16 && out_bf16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, eps, xb, st);
   else if (x_bf16)
-    err = launch<__nv_bfloat16, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<__nv_bfloat16, float>(x, wp, s, gs, out, M, N, K, eps, xb, st);
   else if (out_bf16)
-    err = launch<float, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<float, __nv_bfloat16>(x, wp, s, gs, out, M, N, K, eps, xb, st);
   else
-    err = launch<float, float>(x, wp, s, gs, out, M, N, K, group, eps, st);
+    err = launch<float, float>(x, wp, s, gs, out, M, N, K, eps, xb, st);
   const cudaError_t last = cudaGetLastError();  // also clears a launch error
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -25,22 +25,24 @@
 //    version's 0.59 ms and a byte bound of 0.161 ms (tools/quant_ab.py;
 //    PERF.md has each projection's time).
 //  * GEMM, larger M (prefill, the flow-matching estimator at M = B * L): at
-//    thousands of rows it is bound by the tensor cores' bf16 rate. A block of
-//    8 warps owns a 128 x 128 tile; each 32-wide K step stages bf16(x) and the
-//    weight tile converted int8 -> bf16 in shared memory, and mma.sync
-//    m16n8k16 accumulates in float32 (quant_common.cuh); the next step's
-//    loads go to registers while the current step computes. Still simple: no
-//    cp.async, no TMA, no wgmma, which is where a faster version goes next.
+//    thousands of rows it is bound by the tensor cores' bf16 rate. The
+//    kernel is the shared GEMM of quant_common.cuh (`qmm_wgmma`) with this
+//    file's format: TMA-fed stages of 64 k onto mbarriers from a producer
+//    warpgroup, wgmma m64n128k16 with the converted weights as the register
+//    A operand (`Int8::frags`: one byte permutation per row and k16 step
+//    puts the lane's bytes in natural k order) and x as the shared-memory B
+//    operand, a persistent block of 128 columns x 128 rows per SM, the
+//    column scale applied once in the epilogue; float32 x is rounded into a
+//    bf16 scratch first. On an NVIDIA H100 80GB HBM3 at 700 W the
+//    flow-matching qkv, (5120, 1024) -> 3072, takes about 0.080 ms against
+//    the first version's 0.24 ms and a bound of 0.033 ms
+//    (tools/quant_ab.py; PERF.md has each projection's time).
 
 #include "quant_common.cuh"
 
 namespace {
 
 using namespace quant;
-
-__device__ __forceinline__ float i8(uint32_t w, int j) {
-  return (float)(int8_t)((w >> (8 * j)) & 0xFF);
-}
 
 // Four int8 (one 32-bit word) → bf16 pairs {byte 0, byte 1}, {byte 2, byte 3},
 // exactly: each byte, offset to unsigned, becomes the low mantissa bits of
@@ -88,103 +90,66 @@ struct Int8 {
       mma_bf16(acc, a, xb[2 * s], xb[2 * s + 1]);
     }
   }
+
+  // The GEMM: a stage is 64 k, one byte each of a weight row.
+  static constexpr int KS = 64;
+
+  // A fragments of k16 steps S0 ... S0 + NS - 1 of a stage for weight rows
+  // ra, rb of the 64B-swizzled tile at wt: lane (g, t) of step s needs bytes
+  // 2t, 2t + 1, 2t + 8, 2t + 9 of chunk s of each row. It reads the chunk's
+  // words t / 2 and 2 + t / 2 (the quad's lanes read two words each, shared
+  // in pairs), gathers its four bytes with one byte permutation and converts
+  // them to the bf16 pairs {2t, 2t + 1} (a0, a1) and {2t + 8, 2t + 9} (a2,
+  // a3).
+  template <int S0, int NS>
+  __device__ static void frags(uint32_t (&a)[NS][4], uint32_t wt, int ra, int rb, int t) {
+    const uint32_t pa = wt + sw64(ra, 0) + 4 * (t >> 1), pb = wt + sw64(rb, 0) + 4 * (t >> 1);
+    const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const uint32_t ca = pa ^ ((S0 + i) << 4), cb = pb ^ ((S0 + i) << 4);  // chunk, swizzled
+      i8x4_to_bf16(__byte_perm(lds32(ca), lds32(ca + 8), sel), a[i][0], a[i][2]);
+      i8x4_to_bf16(__byte_perm(lds32(cb), lds32(cb + 8), sel), a[i][1], a[i][3]);
+    }
+  }
 };
-
-constexpr int BN8 = 128;
-
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(GEMM_THREADS)
-int8_gemm(const TX* __restrict__ x, const int8_t* __restrict__ w,
-          const float* __restrict__ scale, TO* __restrict__ out, int M, int N,
-          int K) {
-  constexpr int WN = BN8 / 2;
-  __shared__ __align__(16) __nv_bfloat16 As[BM * AP];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN8 * AP];
-  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  float acc[2][WN / 8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  // weight staging: thread -> row r, 16 consecutive k at c
-  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
-  float av[16];
-  uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-  auto load_w = [&](int k0) {
-    wv = n0 + r < N ? *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c)
-                    : make_uint4(0u, 0u, 0u, 0u);
-  };
-  load_a(av, x, M, K, m0, 0);
-  load_w(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous step's tiles
-    store_a(As, av, k0, nullptr, nullptr);
-    const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-    uint32_t packed[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      packed[j] = pack_bf16(i8(ww[j >> 1], (2 * j) & 3), i8(ww[j >> 1], (2 * j + 1) & 3));
-    uint4* dst = reinterpret_cast<uint4*>(Bs + r * AP + c);
-    dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    __syncthreads();
-    if (k0 + BK < K) {  // the next step's loads fly during these products
-      load_a(av, x, M, K, m0, k0 + BK);
-      load_w(k0 + BK);
-    }
-    mma_tile<WN>(acc, As, Bs, wm, wn);
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j) {
-      const int col = n0 + wn * WN + j * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + i * 16 + g + 8 * h;
-        if (row >= M) continue;
-        if (col < N) store_out(out, (size_t)row * N + col, acc[i][j][2 * h] * scale[col]);
-        if (col + 1 < N)
-          store_out(out, (size_t)row * N + col + 1, acc[i][j][2 * h + 1] * scale[col + 1]);
-      }
-    }
-  }
-}
 
 template <typename TX, typename TO>
 cudaError_t launch(const void* x, const int8_t* w, const float* scale, void* out, int M,
-                   int N, int K, cudaStream_t st) {
+                   int N, int K, __nv_bfloat16* xs, cudaStream_t st) {
   if (M <= GEMV_MAX_M)
     return gemv_launch<Int8, TX, TO>((const TX*)x, (const uint8_t*)w, scale, nullptr,
                                      (TO*)out, M, N, K, 0.f, st);
-  dim3 grid((N + BN8 - 1) / BN8, (M + BM - 1) / BM);
-  int8_gemm<TX, TO><<<grid, GEMM_THREADS, 0, st>>>((const TX*)x, w, scale, (TO*)out, M, N,
-                                                    K);
-  return cudaGetLastError();
+  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+  if constexpr (sizeof(TX) == 4) {  // float32 x: rounded to bf16 into the scratch first
+    if (xs == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t err = prep_launch<Int8, TX>((const TX*)x, nullptr, xs, M, K, 0.f, st);
+    if (err != cudaSuccess) return err;
+    xb = xs;
+  }
+  return gemm_launch<Int8, TO>(xb, (const uint8_t*)w, scale, (TO*)out, M, N, K, st);
 }
 
 }  // namespace
 
 // x (M, K) f32 (x_bf16 = 0) or bf16; w (N, K) int8; scale (N,) f32; out
-// (M, N) f32 (out_bf16 = 0) or bf16; all contiguous; K % 64 == 0.
-// Returns cudaGetLastError().
+// (M, N) f32 (out_bf16 = 0) or bf16; xs (M, K) bf16 scratch for bf16(x),
+// needed when M > 8 and x is f32, else null; all contiguous, x and w
+// 16-byte aligned; K % 64 == 0. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int int8_matmul(const void* x, const void* w, const void* scale, void* out,
-                           int M, int N, int K, int x_bf16, int out_bf16,
+                           int M, int N, int K, int x_bf16, int out_bf16, void* xs,
                            void* stream) {
   if (K % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* wq = (const int8_t*)w;
   const float* s = (const float*)scale;
+  __nv_bfloat16* xb = (__nv_bfloat16*)xs;
   cudaError_t err;
-  if (x_bf16 && out_bf16) err = launch<__nv_bfloat16, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
-  else if (x_bf16) err = launch<__nv_bfloat16, float>(x, wq, s, out, M, N, K, st);
-  else if (out_bf16) err = launch<float, __nv_bfloat16>(x, wq, s, out, M, N, K, st);
-  else err = launch<float, float>(x, wq, s, out, M, N, K, st);
+  if (x_bf16 && out_bf16) err = launch<__nv_bfloat16, __nv_bfloat16>(x, wq, s, out, M, N, K, xb, st);
+  else if (x_bf16) err = launch<__nv_bfloat16, float>(x, wq, s, out, M, N, K, xb, st);
+  else if (out_bf16) err = launch<float, __nv_bfloat16>(x, wq, s, out, M, N, K, xb, st);
+  else err = launch<float, float>(x, wq, s, out, M, N, K, xb, st);
   const cudaError_t last = cudaGetLastError();  // also clears a launch error
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -1,17 +1,55 @@
 // Shared pieces of the weight-only quantized matmuls (int8_matmul.cu,
-// int4_matmul.cu): bf16 tensor-core products through mma.sync, the GEMM's
-// tile geometry, and the whole GEMV (M <= 8) kernel, which the two files
-// instantiate with their weight formats.
+// int4_matmul.cu): the whole GEMV (M <= 8) and GEMM (M > 8) kernels, which
+// the two files instantiate with their weight formats, and their bf16
+// pre-pass.
 //
-// The GEMM: a block of 8 warps owns a BM x BN output tile (BM = 128 rows of
-// x, BN output columns) and walks K in steps of BK = 32. Each step stages
-// bf16(x) (BM x BK) and the weight tile converted to bf16 (BN x BK, the
-// weight's own (N, K) row-major layout) in shared memory with rows padded by
-// 16 bytes, so ldmatrix reads the A and B fragments without bank conflicts;
-// the next step's x and weight bytes are loaded into registers while the
-// current step's products run.
-// Warps are laid out 4 (rows) x 2 (columns); each computes 32 rows x BN/2
-// columns with m16n8k16 products and float32 accumulators.
+// The GEMM (`qmm_wgmma`, M > 8: the AR prefill, the flow-matching
+// estimator) is bound by the tensor cores' bf16 rate at the path's
+// thousands of rows. Its design, as measured on the H100 against the
+// alternatives (tools/quant_ab.py):
+//  * wgmma m64n128k16 with the weights as the register A operand and x as
+//    the shared-memory B operand: the accumulator is the transposed tile
+//    (rows = output columns), and no bf16 weight tile is written back to
+//    shared memory. Each lane converts its two weight rows' bytes straight
+//    from the staged int8 / packed int4 tile with the GEMV's exact
+//    conversions, in natural k order (the hardware reads B, x, that way):
+//    the format's `frags` gathers the lane's bytes with one byte
+//    permutation per row and k16 step;
+//  * TMA (cp.async.bulk.tensor) fills a ring of stages on full/empty
+//    mbarriers from a producer warpgroup (40 registers; the two consumer
+//    warpgroups take 232 by setmaxnreg): per stage an x box of 128 rows x 64
+//    bf16 (128B swizzle, read by wgmma descriptors) per 64 k and a weight
+//    tile of 128 rows x 64 bytes (64B swizzle, so the eight rows a warp
+//    reads at once fall in distinct banks); TMA's zero fill covers the
+//    ragged M, N and K edges;
+//  * a block owns 128 output columns (64 per consumer warpgroup) x 128 x
+//    rows; the block is persistent, one per SM, walking the tiles row tile
+//    by row tile, and its ring runs on across tiles, so the producer loads
+//    the next tile while the consumers store this one (int4 1.1x faster);
+//  * a stage's A fragments are built in two halves, each into its own
+//    buffer, so that every conversion runs while products reading the other
+//    buffer do;
+//  * int8: a stage is 64 k; its products queue behind the previous
+//    stage's on the one accumulator; the column scale multiplies the whole
+//    K sum in the epilogue;
+//  * int4: a stage is one 128-wide group; its eight products go to a fresh
+//    float32 partial (scale-d 0 on the first), which, once complete, is
+//    scaled by the group's column scales and added to the output
+//    accumulator. With whole-stage fragment buffers the two accumulators
+//    and 64 fragment registers spilled, and ran 2.2x slower;
+//  * x is read as bf16: float32 x, or x with int4's RMSNorm prologue, is
+//    first written to a bf16 scratch (the wrapper's) by `qmm_prep`, a warp
+//    per row, the prologue's sum of squares over the whole row;
+//  * no split K and no atomics: a relaunch gives the same bits, and each
+//    output's K order is fixed by its tile, so row r does not depend on M.
+// Measured and dropped: 256 x rows a block (two m64n128 products per k16
+// step; spilled), 256 output columns a block (two 64-row slabs per
+// warpgroup, a third less x traffic per product: within 2.5 % where it had
+// enough tiles, 15 % slower at the prefill qkv), a cheaper int8 conversion
+// (two LOP3 and one bf16x2 fma per pair: no faster). With the fragments
+// replaced by constants, no loads and no conversions, the GEMM still took
+// 0.065 of its 0.083 ms at the flow-matching qkv: the pipeline and the
+// products, not the conversions, hold it at about 40 % of the bf16 peak.
 //
 // The GEMV (one decode step of up to 8 rows; `gemv_kernel` below) is bound
 // by the weight bytes, each used M <= 8 times. What it does about that, as
@@ -52,12 +90,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace quant {
 
-constexpr int BM = 128;
-constexpr int BK = 32;
-constexpr int AP = BK + 8;  // pitch (bf16 elements) of a staged row
-constexpr int GEMM_THREADS = 256;
 constexpr int GEMV_MAX_M = 8;  // rows of x up to which the GEMV path runs
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -73,61 +109,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float load_x(const float* x, size_t i) { return x[i]; }
-__device__ __forceinline__ float load_x(const __nv_bfloat16* x, size_t i) {
-  return __bfloat162float(x[i]);
-}
-
-// 1 / sqrt(mean(x_row^2) + eps) over K, by one warp; every lane gets it.
-template <typename TX>
-__device__ __forceinline__ float row_rinv(const TX* xr, int K, float eps) {
-  float s = 0.f;
-  for (int k = threadIdx.x & 31; k < K; k += 32) {
-    const float v = load_x(xr, k);
-    s = fmaf(v, v, s);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  return 1.f / sqrtf(s / (float)K + eps);
-}
-
-// acc[i][j] (+)= A(32 rows of this warp) x B(this warp's WN columns) over one
-// BK step. As is (BM, AP), Bs is (BN, AP), both bf16 row-major.
-template <int WN>
-__device__ __forceinline__ void mma_tile(float (&acc)[2][WN / 8][4],
-                                         const __nv_bfloat16* As,
-                                         const __nv_bfloat16* Bs, int wm, int wn) {
-  const int lane = threadIdx.x & 31;
-  const int arow = lane & 15, acol = (lane >> 4) * 8;
-  const int brow = (lane & 7) + ((lane >> 4) << 3), bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      ldmatrix_x4(af[i], As + (wm * 32 + i * 16 + arow) * AP + kk * 16 + acol);
-#pragma unroll
-    for (int j = 0; j < WN / 8; j += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, Bs + (wn * WN + j * 8 + brow) * AP + kk * 16 + bcol);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  }
 }
 
 // Eight consecutive x values (16-byte aligned) as floats.
@@ -144,42 +128,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
     v[2 * j] = f.x;
     v[2 * j + 1] = f.y;
   }
-}
-
-// GEMM A tile, software-pipelined: each thread owns row threadIdx.x / 2 of
-// the BM x BK tile and 16 consecutive k; the next step's values are loaded
-// into registers (load_a) while the current step computes, then rounded to
-// bf16, normalised first when g is set, and stored (store_a).
-template <typename TX>
-__device__ __forceinline__ void load_a(float (&v)[16], const TX* x, int M, int K, int m0,
-                                       int k0) {
-  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
-  if (m0 + r < M) {
-    const TX* p = x + (size_t)(m0 + r) * K + k0 + c;
-    load8(p, *reinterpret_cast<float(*)[8]>(&v[0]));
-    load8(p + 8, *reinterpret_cast<float(*)[8]>(&v[8]));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) v[i] = 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_a(__nv_bfloat16* As, const float (&v)[16], int k0,
-                                        const float* rinv, const float* g) {
-  const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;
-  uint32_t p[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float a = v[2 * i], b = v[2 * i + 1];
-    if (g != nullptr) {
-      a = a * rinv[r] * g[k0 + c + 2 * i];
-      b = b * rinv[r] * g[k0 + c + 2 * i + 1];
-    }
-    p[i] = pack_bf16(a, b);
-  }
-  uint4* dst = reinterpret_cast<uint4*>(As + r * AP + c);
-  dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
-  dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
 }
 
 __device__ __forceinline__ void store_out(float* o, size_t i, float v) { o[i] = v; }
@@ -208,29 +156,9 @@ constexpr int CHUNK_BYTES = 64;            // bytes of one weight row in a chunk
 constexpr int MAX_CLUSTER = 4;             // blocks of a cluster, splitting K
 constexpr int SPLIT_CHUNKS = 8;            // chunks per block when a cluster splits K
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait for the barrier's phase of this parity to complete; a wait of
-// billions of cycles can only be a fault, so trap instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 33)) __trap();
-  }
-}
+using hop::mbar_expect_tx;
+using hop::mbar_init;
+using hop::mbar_wait;
 
 __device__ __forceinline__ int cluster_rank() {
   uint32_t r;
@@ -501,6 +429,292 @@ cudaError_t gemv_launch(const TX* x, const uint8_t* w, const float* scale, const
   cluster[0].val.clusterDim.x = cs;
   cfg.numAttrs = cs > 1 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, gemv_kernel<F, TX, TO>, x, w, scale, g, out, M, N, K, eps);
+}
+
+// ---------------------------------------------------------------------------
+// GEMM, M > GEMV_MAX_M (design in the header comment). A weight format F
+// gives:
+//   KS         k values per stage (64 int8, 128 int4: 64 bytes of a weight
+//              row either way, so the weight tile is 128 rows x 64 bytes);
+//   GROUPED    whether each stage is a quantization group with its own
+//              scale per column (int4), the scale then applied to the
+//              stage's fresh float32 partial, instead of one scale per
+//              column after the K sum (int8);
+//   frags      the A fragments of the stage's KS / 16 k16 steps for weight
+//              rows ra and rb of the tile, from the 64B-swizzled tile, in
+//              natural k order.
+
+constexpr int GEMM_BM = 128;                  // x rows per block
+constexpr int GEMM_BN = 128;                  // weight rows (output columns) per block
+constexpr int GEMM_THREADS = 384;             // two consumer warpgroups of 64 weight rows, a producer
+constexpr int W_ROW = 64;                     // bytes of a weight row in a stage
+constexpr int X_BOX = GEMM_BM * 128;          // bytes of an x box: 128 rows x 64 bf16
+constexpr int RING_BYTES = 200 * 1024;        // the ring's share of shared memory
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// Byte offset of 16-byte chunk c of row r of a 64B-swizzled tile of 64-byte
+// rows (TMA's CU_TENSOR_MAP_SWIZZLE_64B on a 512-byte-aligned base): the
+// chunk index is XORed with bits 7-8 of the address, (r / 2) % 4.
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return (uint32_t)(r * W_ROW + ((c ^ ((r >> 1) & 3)) << 4));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+template <class F>
+struct GemmGeom {
+  static constexpr int XB = F::KS / 64;                  // x boxes per stage
+  static constexpr int STAGE = XB * X_BOX + GEMM_BN * W_ROW;  // x boxes, then the weight tile
+  static constexpr int ST = RING_BYTES / STAGE < 8 ? RING_BYTES / STAGE : 8;  // ring stages
+  static constexpr int BAR = ST * STAGE;                 // full[ST], empty[ST]
+  static constexpr size_t SMEM = 1024 + BAR + 16 * ST;   // with the 1024-byte alignment slack
+};
+
+// x: (M, K) bf16 through the map tx (box {64, 128}, 128B swizzle); w: the
+// (N, K * 64 / KS) weight bytes through tw (box {64, 128}, 64B swizzle);
+// scale: (N,) or, GROUPED, (K / KS, N); out: (M, N). Persistent: block b
+// takes the output tiles b, b + gridDim.x, ... of the ceil(M / 128) x
+// ceil(N / 128) tiles, row tile by row tile (so the blocks at work share
+// their x rows in the L2), and its ring runs on across them: the producer
+// loads the next tile's stages while the consumers store this one's.
+// Warpgroup w (0 or 1) owns weight rows 64 w ... 64 w + 63 of a tile;
+// warpgroup 2's first thread is the producer. TMA zero-fills the rows past
+// M and N and the k past K.
+template <class F, typename TO>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+          const float* __restrict__ scale, TO* __restrict__ out, int M, int N, int K) {
+  using G = GemmGeom<F>;
+  constexpr int NK = F::KS / 16;  // k16 steps per stage, built in two halves
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sraw = smem_addr(smem_raw);
+  const uint32_t sbase = sraw + ((1024u - (sraw & 1023u)) & 1023u);
+  const uint32_t full = sbase + G::BAR, empty = full + 8 * G::ST;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int tiles_n = (N + GEMM_BN - 1) / GEMM_BN;
+  const int tiles = tiles_n * ((M + GEMM_BM - 1) / GEMM_BM);
+  const int nst = (K + F::KS - 1) / F::KS;
+
+  if (tid == 0) {
+    for (int s = 0; s < G::ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: x and weight tiles into the ring
+    hop::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      int it = 0;  // stages loaded so far, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * GEMM_BM, n0 = tile % tiles_n * GEMM_BN;
+        for (int j = 0; j < nst; ++j, ++it) {
+          const int s = it % G::ST;
+          if (it >= G::ST) mbar_wait(empty + 8 * s, (it / G::ST - 1) & 1);
+          const uint32_t st = sbase + s * G::STAGE, bar = full + 8 * s;
+          mbar_expect_tx(bar, G::STAGE);
+#pragma unroll
+          for (int b = 0; b < G::XB; ++b)
+            hop::tma_load_2d(st + b * X_BOX, &tx, j * F::KS + 64 * b, m0, bar);
+          hop::tma_load_2d(st + G::XB * X_BOX, &tw, j * W_ROW, n0, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<CONSUMER_REGS>();
+  const int warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
+  const int ra = 64 * wg + 16 * warp + (lane >> 2), rb = ra + 8;  // this lane's weight rows
+  auto release = [&](int it) {  // this warp is done with the stage loaded it-th
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + 8 * (it % G::ST));
+  };
+  float acc[64];
+  [[maybe_unused]] float part[F::GROUPED ? 64 : 1];  // a group's fresh partial
+  float sa = 0.f, sb = 0.f;  // the scales of rows ra, rb: per column, or the pending group's
+  // A stage's fragments are built in two halves of NK / 2 k16 steps, each
+  // into its own buffer, so that every conversion runs while products that
+  // read the other buffer do: the first half's while the previous stage's
+  // second half runs, the second half's while this stage's first half runs.
+  uint32_t lo[NK / 2][4], hi[NK / 2][4];
+  auto mma = [&](uint32_t st, uint32_t (&a)[NK / 2][4], int k0) {
+    if constexpr (!F::GROUPED) hop::fence_regs(acc);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      const int k = k0 + kk;  // x box k / 4, +32 bytes a k16 step inside its rows
+      const uint64_t xd = hop::desc_sw128(st + (k / 4) * X_BOX + (k % 4) * 32, 16);
+      if constexpr (F::GROUPED)
+        hop::wgmma_rs_n128(part, a[kk], xd, k > 0);
+      else
+        hop::wgmma_rs_n128(acc, a[kk], xd, 1);
+    }
+    hop::wgmma_commit();
+  };
+  auto fuse = [&]() {  // the complete group's partial, scaled, into acc
+    if constexpr (F::GROUPED) {
+      hop::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], (i & 2) ? sb : sa, acc[i]);
+    }
+  };
+  int it = 0;  // stages consumed so far, over all of this block's tiles
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * GEMM_BM, n0 = tile % tiles_n * GEMM_BN;
+    const bool va = n0 + ra < N, vb = n0 + rb < N;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nst; ++j, ++it) {
+      const uint32_t st = sbase + (it % G::ST) * G::STAGE, wt = st + G::XB * X_BOX;
+      float na = 0.f, nb = 0.f;
+      if constexpr (F::GROUPED) {  // this group's scales, loaded while the tiles land
+        na = va ? scale[(size_t)j * N + n0 + ra] : 0.f;
+        nb = vb ? scale[(size_t)j * N + n0 + rb] : 0.f;
+      }
+      mbar_wait(full + 8 * (it % G::ST), (it / G::ST) & 1);
+      if (j > 0) hop::wgmma_wait<1>();  // the previous stage's first half, which read lo
+      F::template frags<0, NK / 2>(lo, wt, ra, rb, t);
+      if constexpr (F::GROUPED) {  // a fresh partial: the previous group must be complete
+        if (j > 0) {
+          hop::wgmma_wait<0>();
+          release(it - 1);
+          fuse();
+        }
+        sa = na;
+        sb = nb;
+        hop::fence_regs(part);
+        mma(st, lo, 0);
+      } else {  // the same accumulator: the products queue behind the previous stage's
+        mma(st, lo, 0);
+        if (j > 0) {
+          hop::wgmma_wait<1>();  // the previous stage's second half, which read hi
+          release(it - 1);
+        }
+      }
+      F::template frags<NK / 2, NK / 2>(hi, wt, ra, rb, t);
+      mma(st, hi, NK / 2);
+    }
+    hop::wgmma_wait<0>();
+    release(it - 1);
+    if constexpr (F::GROUPED) {
+      fuse();
+    } else {
+      hop::fence_regs(acc);
+      sa = va ? scale[n0 + ra] : 0.f;
+      sb = vb ? scale[n0 + rb] : 0.f;
+    }
+
+    // accumulator element 4i + e: weight row (e < 2 ? ra : rb), x row
+    // 8 i + 2 t + (e & 1)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 8 * i + 2 * t + (e & 1);
+        if ((e < 2 ? va : vb) && m < M) {
+          const float v = acc[4 * i + e];
+          store_out(out, (size_t)m * N + n0 + (e < 2 ? ra : rb),
+                    F::GROUPED ? v : v * (e < 2 ? sa : sb));
+        }
+      }
+    }
+  }
+}
+
+// x (M, K) float32 or bf16 -> bf16, normalised first when g is given:
+// bf16(x * (1 / sqrt(mean(x^2) + eps)) * g), the RMSNorm prologue, with the
+// row's sum of squares over the whole row. One warp per row; K % 8 == 0,
+// x, g and xb 16-byte aligned. (F only names the kernel after its format.)
+template <class F, typename TX>
+__global__ void __launch_bounds__(256)
+qmm_prep(const TX* __restrict__ x, const float* __restrict__ g, __nv_bfloat16* __restrict__ xb,
+         int M, int K, float eps) {
+  const int row = (int)blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const TX* xr = x + (size_t)row * K;
+  float rinv = 0.f;
+  if (g != nullptr) {
+    float s = 0.f;
+    for (int k = 8 * lane; k < K; k += 256) {
+      float v[8];
+      load8(xr + k, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = fmaf(v[e], v[e], s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    rinv = 1.f / sqrtf(s / (float)K + eps);
+  }
+  for (int k = 8 * lane; k < K; k += 256) {
+    float v[8];
+    load8(xr + k, v);
+    if (g != nullptr) {
+      float gv[8];
+      load8(g + k, gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = v[e] * rinv * gv[e];
+    }
+    *reinterpret_cast<uint4*>(xb + (size_t)row * K + k) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                   pack_bf16(v[6], v[7]));
+  }
+}
+
+// bf16(x), or the prologue's normalised x, into xb (the wrapper's scratch).
+template <class F, typename TX>
+cudaError_t prep_launch(const TX* x, const float* g, __nv_bfloat16* xb, int M, int K, float eps,
+                        cudaStream_t st) {
+  qmm_prep<F, TX><<<(M + 7) / 8, 256, 0, st>>>(x, g, xb, M, K, eps);
+  return cudaGetLastError();
+}
+
+// The GEMM on bf16 x (M, K): tensor maps for x and the weight bytes, then
+// one launch. Returns cudaErrorInvalidValue for what TMA cannot address (a
+// base that is not 16-byte aligned, a map the driver refuses).
+// The GEMM on bf16 x (M, K): tensor maps for x and the weight bytes, then
+// one persistent launch of at most one block per SM. Returns
+// cudaErrorInvalidValue for what TMA cannot address (a base that is not
+// 16-byte aligned, a map the driver refuses).
+template <class F, typename TO>
+cudaError_t gemm_launch(const __nv_bfloat16* x, const uint8_t* w, const float* scale, TO* out,
+                        int M, int N, int K, cudaStream_t st) {
+  using G = GemmGeom<F>;
+  if (((uintptr_t)x | (uintptr_t)w) & 15) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  const uint64_t wrow = (uint64_t)K * W_ROW / F::KS;  // weight bytes of a row
+  if (!hop::make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, 64, GEMM_BM,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hop::make_map_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, wrow, W_ROW, GEMM_BN,
+                        CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qmm_wgmma<F, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
+  if (attr != cudaSuccess) return attr;
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const int tiles = ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
+  qmm_wgmma<F, TO><<<tiles < sms ? tiles : sms, GEMM_THREADS, G::SMEM, st>>>(tx, tw, scale, out,
+                                                                          M, N, K);
+  return cudaGetLastError();
 }
 
 }  // namespace quant

@@ -28,9 +28,10 @@ from __future__ import annotations
 import torch
 
 from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P, no_backward
+from amphion_tpu_torch.ops.kernels.int8_matmul import GEMV_MAX_M
 
 INT4_MM = Kernel("int4_matmul",
-                 {"int4_matmul": [P, P, P, P, P, I, I, I, I, I, I, Fl, P]})
+                 {"int4_matmul": [P, P, P, P, P, I, I, I, I, I, I, Fl, P, P]})
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = 128
@@ -96,9 +97,12 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (M, K) float32 or bf16 @ packed int4 w_p (N, K/2), scale (K/group, N)
     → (M, N) in ``out_dtype``; ``rms_scale`` (K,) adds the RMSNorm prologue.
-    M ≤ 8 takes the kernel's GEMV path, larger M its tiled GEMM. To
-    normalise x, a GEMM block reads whole rows; the GEMV's blocks each sum
-    their own K range and add the sums across their cluster."""
+    M ≤ 8 takes the kernel's GEMV path, larger M its TMA-fed wgmma GEMM
+    (launches counted under the tag ``"gemm"``, and with the prologue under
+    ``"rms_prologue"``). The GEMM reads bf16 x: a float32 x, or x to be
+    normalised, is first written to a bf16 scratch inside the same call, a
+    warp per whole row; the GEMV's blocks each sum their own K range and add
+    the sums across their cluster."""
     if x.ndim != 2 or w_p.ndim != 2 or x.shape[1] != 2 * w_p.shape[1]:
         raise ValueError(f"int4_matmul shapes x {tuple(x.shape)} w_p {tuple(w_p.shape)}")
     m, k = x.shape
@@ -134,13 +138,19 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if scale.dtype != torch.float32:
         raise ValueError(f"scale must be float32, got {scale.dtype}")
+    if w_p.data_ptr() % 16:  # the GEMM's TMA needs a 16-byte-aligned base
+        raise ValueError("w_p must be 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    gemm = m > GEMV_MAX_M
+    xs = (torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
+          if gemm and (g is not None or x.dtype == torch.float32) else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     INT4_MM.launch("int4_matmul", x.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
                    None if g is None else g.data_ptr(), out.data_ptr(), m, n, k,
                    group, int(x.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16), float(rms_eps), stream,
-                   tag=None if g is None else "rms_prologue")
+                   int(out_dtype == torch.bfloat16), float(rms_eps),
+                   None if xs is None else xs.data_ptr(), stream,
+                   tag=("gemm",) * gemm + ("rms_prologue",) * (g is not None))
     return out

@@ -20,7 +20,8 @@ import torch
 
 from amphion_tpu_torch.ops.kernels._build import I, Kernel, P, no_backward
 
-INT8_MM = Kernel("int8_matmul", {"int8_matmul": [P, P, P, P, I, I, I, I, I, P]})
+GEMV_MAX_M = 8  # rows of x up to which the kernels take their GEMV path (csrc/quant_common.cuh)
+INT8_MM = Kernel("int8_matmul", {"int8_matmul": [P, P, P, P, I, I, I, I, I, P, P]})
 
 
 def quantize_weight_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +51,9 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (M, K) float32 or bf16 @ int8 w_q (N, K) with scale (N,) →
     (M, N) in ``out_dtype`` (float32 or bf16). M ≤ 8 takes the kernel's
-    GEMV path, larger M its tiled mma.sync GEMM."""
+    GEMV path, larger M its TMA-fed wgmma GEMM (launches counted under the
+    tag ``"gemm"``), which reads bf16 x: float32 x is rounded into a bf16
+    scratch first, inside the same call."""
     if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[1]:
         raise ValueError(f"int8_matmul shapes x {tuple(x.shape)} w_q {tuple(w_q.shape)}")
     m, k = x.shape
@@ -77,11 +80,17 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if scale.dtype != torch.float32:
         raise ValueError(f"scale must be float32, got {scale.dtype}")
+    if w_q.data_ptr() % 16:  # the GEMM's TMA needs a 16-byte-aligned base
+        raise ValueError("w_q must be 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    gemm = m > GEMV_MAX_M
+    xs = (torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
+          if gemm and x.dtype == torch.float32 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     INT8_MM.launch("int8_matmul", x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                    out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16), stream)
+                   int(out_dtype == torch.bfloat16), None if xs is None else xs.data_ptr(),
+                   stream, tag="gemm" if gemm else None)
     return out

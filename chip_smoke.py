@@ -33,7 +33,8 @@ checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
 plain versions on the inputs the voice paths gave them (decode, AR prefill
 and flow-matching rows, with and without the RMSNorm prologue; at the
-decode rows also relaunched and row by row, bit for bit) and the
+decode rows also relaunched and row by row, bit for bit, at the GEMM's
+rows relaunched; the GEMM's launches counted apart) and the
 anti-aliased SnakeBeta kernel on the inputs of one 10 s file's 73
 activations. It then
 measures what padding each voice decode to ``max_batch`` rows costs and
@@ -335,11 +336,16 @@ def slice_phase(seed: int, mel_k, flash_k) -> dict:
             "mel_lengths": sorted(mel_inputs), "perf": perf}
 
 
-KERNEL_GROUPS = [("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd", "bwd_d"),
-                 ("mel", "mel_kernel"),
-                 ("int8_matmul", "int8_ge"), ("int4_matmul", "int4_ge"),
-                 ("int8_matmul", "::Int8,"), ("int4_matmul", "::Int4,"),  # the shared GEMV
-                 ("decode_attn_int8", "decode_"), ]
+# profile group → the substrings a kernel's name must all hold; the first
+# group that matches takes it. #4/#5's GEMM (with its bf16 pre-pass,
+# `qmm_wgmma` and `qmm_prep`) and their shared GEMV (`gemv_kernel`) are
+# instantiated with each format (`Int8`, `Int4`).
+KERNEL_GROUPS = [("flash_attn_fwd", ("flash_fwd",)), ("flash_attn_bwd", ("bwd_d",)),
+                 ("mel", ("mel_kernel",)),
+                 ("int8_gemm", ("qmm_", "::Int8,")), ("int4_gemm", ("qmm_", "::Int4,")),
+                 ("int8_gemv", ("gemv_kernel", "::Int8,")),
+                 ("int4_gemv", ("gemv_kernel", "::Int4,")),
+                 ("decode_attn_int8", ("decode_",)), ]
 LIBRARY_GEMM = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 
 
@@ -371,7 +377,7 @@ def profile_rerun(svc, audio, seeds, mode: str = "timbre") -> dict:
     groups.update(gemm=0.0, other=0.0)
     by_name, n_kernels = device_us_by_name(prof)
     for name, us in by_name.items():
-        group = next((g for g, pat in KERNEL_GROUPS if pat in name), None)
+        group = next((g for g, pats in KERNEL_GROUPS if all(p in name for p in pats)), None)
         if group is None:
             group = "gemm" if any(t in name for t in LIBRARY_GEMM) else "other"
         groups[group] += us
@@ -559,7 +565,8 @@ def path_quant_check(label: str, rec: ProjRecorder, int4: bool) -> float:
     """Kernel 4 (or 5) against its plain version on every recorded input
     of the main path, at the output dtype the path asked for: float32 within
     `quant_close`, and the bf16 output bit-equal to the float32 one rounded.
-    At the decode rows (M <= 8) the GEMV must also give the same bits when
+    At the GEMM's rows (M > 8) a relaunch must give the same bits. At the
+    decode rows (M <= 8) the GEMV must also give the same bits when
     relaunched, and each row the same bits alone (M = 1), at the recorded
     rows and among 8 rows (the recorded ones, then the same reversed), in
     float32 and in the path's dtype. Returns the largest float32 error."""
@@ -582,8 +589,11 @@ def path_quant_check(label: str, rec: ProjRecorder, int4: bool) -> float:
         out_bf = run(kernel, x, x.dtype)
         same = bool(torch.equal(out_bf, out.to(x.dtype)))
         n, k = mod.kernel_q.shape[0], x.shape[1]
+        if m > 8:  # the GEMM: the same bits when relaunched
+            same = same and bool(torch.equal(run(kernel, x, torch.float32), out))
         check(f"{label} path {name} M={m} K={k} N={n} rms_prologue={pro}", ok and same,
-              f"{detail}; {x.dtype} output equals the float32 one rounded: {same}")
+              f"{detail}; {x.dtype} output equals the float32 one rounded"
+              + (" and a relaunch's bits" if m > 8 else "") + f": {same}")
         if m <= 8:
             n_gemv += 1
             x8 = torch.cat([x, x.flip(0)])[:8]
@@ -705,6 +715,11 @@ def voice_launches(max_new: int) -> int:
     return AR_LAYERS * 4 + max_new * AR_LAYERS * 4 + FM_STEPS * FM_LAYERS * 4
 
 
+# GEMM launches (M > 8) of one voice batch: the AR prefill's and the flow
+# matching's projections; the decode's run the GEMV (M = max_batch = 4).
+VOICE_GEMM_LAUNCHES = AR_LAYERS * 4 + FM_STEPS * FM_LAYERS * 4  # 2 144
+
+
 def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
                 kernels: dict, solo_check: bool) -> dict:
     """Four concurrent full-width Vevo-Voice requests in ``dtype``."""
@@ -741,6 +756,7 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
         torch.cuda.reset_peak_memory_stats()
         wavs, lats, wall = serve(svc, audio, seeds, "voice")
         launches = {name: k.launches for name, k in kernels.items()}
+        gemm_launches = qk.tagged.get("gemm", 0)
         peak = torch.cuda.max_memory_allocated() / 2**30
         prec.remove()
         n_batches = svc.stats()["batches"] - batches0
@@ -750,6 +766,10 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
         check(f"voice {dtype} {qk.name} launches", launches[qk.name] == want,
               f"{launches[qk.name]} (predicted {AR_LAYERS}*4 + {max_new}*{AR_LAYERS}*4 + "
               f"{FM_STEPS}*{FM_LAYERS}*4 = {want})")
+        check(f"voice {dtype} {qk.name} GEMM launches", gemm_launches == VOICE_GEMM_LAUNCHES,
+              f"{gemm_launches} (predicted the AR prefill's {AR_LAYERS}*4 + the flow "
+              f"matching's {FM_STEPS}*{FM_LAYERS}*4 = {VOICE_GEMM_LAUNCHES}; the decode's "
+              f"{max_new}*{AR_LAYERS}*4 run the GEMV)")
         other = "int4_matmul" if dtype == "int8" else "int8_matmul"
         check(f"voice {dtype} mel/flash/other launches",
               launches["mel"] == 3 * len(audio) and launches["flash_attn_fwd"] == FM_LAYERS * FM_STEPS
@@ -802,7 +822,8 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
     finally:
         svc.shutdown()
         service_mod.ar_transformer_generate_ragged = rec.inner
-    return {"pipe": pipe, "audio": audio, "launches": launches, "perf": perf,
+    return {"pipe": pipe, "audio": audio, "launches": launches, "gemm_launches": gemm_launches,
+            "perf": perf,
             "shapes": shapes, "trace": trace, "path_err": path_err, "seeds": seeds,
             "ar_inputs": rec.calls[-1][:4]}
 
@@ -859,11 +880,13 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
         del os.environ["AMPHION_FUSED_RMS"]
         prec.remove()
     k4 = kernels["int4_matmul"]
-    pro = k4.tagged.get("rms_prologue", 0)
+    pro, gemm = k4.tagged.get("rms_prologue", 0), k4.tagged.get("gemm", 0)
     check("fused RMSNorm prologue launches", pro == 2 * AR_LAYERS * (1 + steps)
-          and k4.launches == 4 * AR_LAYERS * (1 + steps) and bool((toks >= 0).all()),
-          f"{pro} prologue launches of {k4.launches} (predicted 2 x {AR_LAYERS} layers x "
-          f"(prefill + {steps} steps) of 4 x ...)")
+          and k4.launches == 4 * AR_LAYERS * (1 + steps) and gemm == 4 * AR_LAYERS
+          and bool((toks >= 0).all()),
+          f"{pro} prologue launches of {k4.launches}, {gemm} on the GEMM path (predicted 2 x "
+          f"{AR_LAYERS} layers x (prefill + {steps} steps) of 4 x ..., the prefill's 4 x "
+          f"{AR_LAYERS} on the GEMM)")
     pro_rows = sorted({m for _, m, p in prec.seen if p})
     check("fused RMSNorm prologue rows", pro_rows == [len(gens), v4["shapes"]["ar_prefill_rows"]],
           f"{pro_rows} (decode {len(gens)}, the voice batch's AR prefill "
@@ -998,9 +1021,14 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
     alone at M = 1, 4 and 8 beside its own bound (``per_projection_*``, 24
     calls a replay); kernel 5's row also times the step and its qkv and
     gateup with the RMSNorm prologue as AMPHION_FUSED_RMS=1 runs them
-    (``prologue_*``); the ``fm_gemm_*`` keys time the flow-matching qkv projection at the batch's B * L rows,
-    bound by bf16 operations. Decode attention is timed at the
-    single-utterance cache with valid_len at its middle step."""
+    (``prologue_*``); the ``gemm_*`` keys time the GEMM path (M > 8) at each
+    projection of the flow matching (the batch's B * L rows) and of the AR
+    prefill (its rows; kernel 5 also with the prologue on qkv and gateup),
+    on the first layer's weights, by CUDA-graph replays, beside each one's
+    bound (bf16 operations) and library call and, at the FM qkv, the plain
+    version, and carry the voice batch's GEMM launches.
+    Decode attention is timed at the single-utterance cache with valid_len
+    at its middle step."""
     from amphion_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_int8, decode_attention_int8_ref)
     from amphion_tpu_torch.ops.kernels.int4_matmul import (
@@ -1105,33 +1133,48 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
                   * (2 if name == "int4_matmul" else 1) for q in mods)
         bound, by = _bound(ops, nbytes)
         lib = library(name, mods, lambda q: xs[q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)])
-        # the flow-matching qkv projection at the batch's rows
-        fm = v["pipe"].fm.diff_estimator.encoder.layer_0.attn.qkv_proj
-        rows_fm = v["shapes"]["fm_rows"]
-        xf = torch.randn((rows_fm, FM_HIDDEN), generator=g, device=dev).bfloat16()
-        fm_ms = gpu_ms(lambda: mm(xf, fm.kernel_q, fm.scale, *extra(fm), out_dtype=torch.bfloat16))
-        fm_plain = gpu_ms(lambda: ref(xf, fm.kernel_q, fm.scale, *extra(fm),
-                                      out_dtype=torch.bfloat16), iters=3)
-        n_fm = fm.kernel_q.shape[0]
-        fm_bound, fm_by = _bound(2.0 * rows_fm * FM_HIDDEN * n_fm,
-                                 fm.kernel_q.numel() + 4 * fm.scale.numel()
-                                 + 2 * rows_fm * (FM_HIDDEN + n_fm))
-        fm_lib = library(name, [fm], lambda q: xf)
         log(f"timing {name}: one decode step ({len(mods)} projections, M={m}, "
             f"{nbytes / 1e6:.1f} MB, device time of a CUDA-graph replay) kernel {k_ms} ms "
             + (f"(with the RMSNorm prologue on qkv and gateup {pro_ms} ms) " if pro_ms else "")
-            + 
-            f"({eager_ms} ms launched one by one from Python), plain {p_ms} ms, library {lib} ms, "
-            f"bound {bound} ms ({by}); FM qkv ({rows_fm}, {FM_HIDDEN}) -> {n_fm}: kernel "
-            f"{fm_ms} ms, plain {fm_plain} ms, library {fm_lib} ms, bound {fm_bound} ms ({fm_by})")
+            + f"({eager_ms} ms launched one by one from Python), plain {p_ms} ms, library "
+            f"{lib} ms, bound {bound} ms ({by})")
+        # the GEMM at each projection of the flow matching and the AR prefill
+        gemm = {"gemm_ms": {}, "gemm_bound_ms": {}, "gemm_library_ms": {}, "gemm_plain_ms": {}}
+        if name == "int4_matmul":
+            gemm["gemm_prologue_ms"] = {}
+        gemm_rows = {"FM": v["shapes"]["fm_rows"], "prefill": v["shapes"]["ar_prefill_rows"]}
+        for tag, stack in (("FM", v["pipe"].fm.diff_estimator.encoder), ("prefill", v["pipe"].ar.decoder)):
+            layer = stack.layer_0
+            for label, q in zip(("qkv", "o", "gateup", "down"),
+                                (layer.attn.qkv_proj, layer.attn.o_proj, layer.mlp.gateup_proj,
+                                 layer.mlp.down_proj)):
+                k_in = q.kernel_q.shape[1] * (2 if name == "int4_matmul" else 1)
+                n_out, rows_g = q.kernel_q.shape[0], gemm_rows[tag]
+                xg = torch.randn((rows_g, k_in), generator=g, device=dev).bfloat16()
+                key = f"{tag} {label}"
+                gemm["gemm_ms"][key] = graph_ms(
+                    lambda: mm(xg, q.kernel_q, q.scale, *extra(q), out_dtype=torch.bfloat16))
+                gemm["gemm_bound_ms"][key] = _bound(
+                    2.0 * rows_g * k_in * n_out,
+                    q.kernel_q.numel() + 4 * q.scale.numel() + 2 * rows_g * (k_in + n_out))[0]
+                gemm["gemm_library_ms"][key] = library(name, [q], lambda _: xg)
+                if key == "FM qkv":  # the plain version at one GEMM shape
+                    gemm["gemm_plain_ms"][key] = graph_ms(
+                        lambda: ref(xg, q.kernel_q, q.scale, *extra(q), out_dtype=torch.bfloat16),
+                        iters=3)
+                if name == "int4_matmul" and tag == "prefill" and label in PROLOGUE_PROJ:
+                    gemm["gemm_prologue_ms"][key] = graph_ms(lambda: mm(
+                        xg, q.kernel_q, q.scale, q.group, gains[k_in], 1e-6,
+                        out_dtype=torch.bfloat16))
+        log(f"timing {name}: the GEMM by projection (ms, CUDA graph, rows {json.dumps(gemm_rows)}): "
+            + json.dumps(gemm))
         err = max(v["path_err"], fused["prologue_err"] if name == "int4_matmul" else 0.0)
         more = ({"prologue_ms": pro_ms, "prologue_per_projection_us": pro_shape}
                 if pro_ms else {})
+        more.update(gemm, gemm_rows=gemm_rows, gemm_launches=v["gemm_launches"])
         rows.append(_row(name, src, line, v["launches"][name], err, k_ms, p_ms, bound,
                          by, lib, per_projection_us=per_shape,
-                         per_projection_bound_us=per_bound, **more, fm_gemm_ms=fm_ms,
-                         fm_gemm_plain_ms=fm_plain, fm_gemm_bound_ms=fm_bound,
-                         fm_gemm_library_ms=fm_lib, fm_gemm_rows=rows_fm))
+                         per_projection_bound_us=per_bound, **more))
 
     # decode attention at the single-utterance cache, middle step
     s_len, d = fused["cache_len"], AR_HIDDEN // AR_HEADS

@@ -123,15 +123,20 @@ def test_flash_kernel_rejects_unsupported_head_dim(cuda):
 # M = 4 is the Vevo AR decode batch (GEMV path: qkv, o, gateup and down of
 # the AR decoder), 1000 a ragged prefill and 6144 the flow-matching
 # estimator (GEMM path); N 1000 and 3000 are not multiples of the GEMM's
-# tile. (2, 2176, 1000) splits K unevenly between the blocks of a GEMV
-# cluster (34 int8 chunks over 4 blocks, 17 int4 groups over 3) and ends in
-# a partial 16-column tile. Both paths sum in float32, in another order than
-# the plain version: max|err| <= 1e-4 of max|ref| in float32 output, and
-# the bf16 output within one bf16 rounding (2**-8 relative).
+# 128-column tile. (2, 2176, 1000) splits K unevenly between the blocks of a
+# GEMV cluster (34 int8 chunks over 4 blocks, 17 int4 groups over 3) and
+# ends in a partial 16-column tile. The GEMM rows: M = 9 (the smallest
+# GEMM), 127 and 129 (one row either side of a 128-row tile), the voice
+# batch's AR prefill (2316 rows, qkv) and FM (5120 rows, qkv), with K 4096
+# at 129 rows. Both paths sum in float32, in another order than the plain
+# version: max|err| <= 1e-4 of max|ref| in float32 output, and the bf16
+# output within one bf16 rounding (2**-8 relative).
 
 MM_CASES = [(4, 1280, 3840), (1, 1280, 1280), (8, 4096, 1280), (3, 1024, 1000),
             (1000, 1280, 3000), (6144, 1024, 3072), (200, 4096, 1280),
-            (4, 1280, 8192), (4, 4096, 1280), (2, 2176, 1000)]
+            (4, 1280, 8192), (4, 4096, 1280), (2, 2176, 1000),
+            (9, 1280, 1280), (127, 1024, 1000), (129, 4096, 3000), (2316, 1280, 3840),
+            (5120, 1024, 3072)]
 
 
 def _mm_close(out, ref):
@@ -230,6 +235,70 @@ def test_quant_gemv_rows_do_not_depend_on_m(cuda, kind, k, n):
         assert torch.equal(mm(x[:4], dt), full[:4]), dt
         for r in range(8):
             assert torch.equal(mm(x[r:r + 1], dt)[0], full[r]), (r, dt)
+
+
+@pytest.mark.parametrize("m,k,n", [(129, 1280, 1000), (2316, 4096, 1280)])
+def test_int4_gemm_float32_x_matches_plain(cuda, m, k, n):
+    """float32 x on the GEMM path, rounded to bf16 into the scratch first."""
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        INT4_MM, int4_matmul, int4_matmul_ref, pack_int4, quantize_weight_int4)
+
+    g = torch.Generator(cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w_int, scale = quantize_weight_int4(
+        (torch.randn((n, k), generator=g, device=cuda) * 0.05).bfloat16(), 128)
+    w_p = pack_int4(w_int)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        gemm = INT4_MM.tagged.get("gemm", 0)
+        out = int4_matmul(x, w_p, scale, 128, None, 1e-6, out_dtype)
+        torch.cuda.synchronize()
+        assert INT4_MM.tagged["gemm"] == gemm + 1
+        _mm_close(out, int4_matmul_ref(x, w_p, scale, 128, None, 1e-6, out_dtype))
+
+
+# The GEMM path (M > 8): a relaunch gives the same bits, with and without
+# int4's prologue, from float32 and bf16 x, in float32 and bf16 output.
+GEMM_SHAPES = [(129, 1280, 3840), (2316, 1280, 1000), (5120, 4096, 1280)]
+
+
+def _quant_gemm(cuda, kind, k, n, m, seed):
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, pack_int4, quantize_weight_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
+
+    g = torch.Generator(cuda).manual_seed(seed)
+    w = (torch.randn((n, k), generator=g, device=cuda) * 0.05).bfloat16()
+    x = torch.randn((m, k), generator=g, device=cuda)
+    if kind == "int8":
+        w_q, scale = quantize_weight_int8(w)
+        return x, lambda xx, dt: int8_matmul(xx, w_q, scale, dt)
+    w_int, scale = quantize_weight_int4(w, 128)
+    w_p = pack_int4(w_int)
+    gain = (1 + 0.1 * torch.randn((k,), generator=g, device=cuda)) if kind == "int4_rms" else None
+    return x, lambda xx, dt: int4_matmul(xx, w_p, scale, 128, gain, 1e-6, dt)
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_rms"])
+def test_quant_gemm_relaunch_is_bit_equal(cuda, kind, m, k, n):
+    x, mm = _quant_gemm(cuda, kind, k, n, m, m + k + n)
+    for xx in (x, x.bfloat16()):
+        for dt in (torch.float32, torch.bfloat16):
+            first = mm(xx, dt)
+            again = [mm(xx, dt) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(first, a) for a in again), (xx.dtype, dt)
+
+
+# Row r of the GEMM's output at M = 129 equals row r at M = 2316, bit for
+# bit: each output's K order is fixed by its tile, whatever the other rows.
+@pytest.mark.parametrize("k,n", [(1280, 3840), (4096, 1000)])
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_rms"])
+def test_quant_gemm_rows_do_not_depend_on_m(cuda, kind, k, n):
+    x, mm = _quant_gemm(cuda, kind, k, n, 2316, 5 * k + n)
+    for xx in (x, x.bfloat16()):
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(mm(xx[:129], dt), mm(xx, dt)[:129]), (xx.dtype, dt)
 
 
 @pytest.mark.parametrize("b,h,s,d,lens", [(1, 20, 2200, 64, [1733]),
