@@ -38,6 +38,7 @@ from amphion_tpu_torch.ops.kernels._build import I, Kernel, P, no_backward
 AA_SNAKE = Kernel("aa_snake", {"aa_snake_fwd": [P, P, P, P, P, I, I, I, I, P]})
 AA_HALO = 6
 SLOTS = 7
+ZERO_SLOT = (6, 0, 0, 6)  # the zero slot of up_0, up_1, down_0, down_1 (`csrc/aa_snake.cu`)
 
 
 @functools.lru_cache(maxsize=1)
@@ -68,7 +69,13 @@ def aa_polyphase_taps() -> tuple[tuple[float, ...], ...]:
 
 @functools.lru_cache(maxsize=8)
 def _taps_tensor(device: torch.device) -> torch.Tensor:
-    return torch.tensor(aa_polyphase_taps(), dtype=torch.float32, device=device).reshape(-1)
+    """The 28 taps as the kernel takes them; it skips slot `ZERO_SLOT[f]`
+    of filter f at compile time, so any other zero pattern raises."""
+    taps = aa_polyphase_taps()
+    zeros = tuple(tuple(d for d, w in enumerate(row) if w == 0.0) for row in taps)
+    if zeros != tuple((z,) for z in ZERO_SLOT):
+        raise ValueError(f"aa_snake kernel skips slots {ZERO_SLOT}, the taps' zeros are {zeros}")
+    return torch.tensor(taps, dtype=torch.float32, device=device).reshape(-1)
 
 
 def aa_snakebeta_ref(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) pieces shared by the kernels that use them
-// (flash_attn_fwd.cu's bf16 forward and the quantized matmuls'
-// GEMV and GEMM in quant_common.cuh): mbarriers, TMA loads, wgmma
-// descriptors and products, register reallocation, and the CUDA driver's
-// tensor-map encoder reached without -lcuda.
+// (flash_attn_fwd.cu's bf16 forward, the quantized matmuls' GEMV and GEMM
+// in quant_common.cuh, decode_attn_int8.cu): mbarriers, thread-block
+// cluster ranks, barriers and stores into another block's shared memory,
+// TMA loads, wgmma descriptors and products, register reallocation, and
+// the CUDA driver's tensor-map encoder reached without -lcuda.
 #pragma once
 
 #include <cuda.h>
@@ -40,6 +41,43 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (!done && clock64() - start > (1ll << 33)) __trap();
   }
+}
+
+// ------------------------------------------------------------------- clusters
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The address of this block's shared variable at `addr` in block `rank` of
+// the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Stores into another block's shared memory that complete their bytes on
+// that block's barrier (both addresses from cluster_addr).
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n"
+               :: "r"(addr), "f"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async4(uint32_t addr, const float (&v)[4], uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar) : "memory");
 }
 
 // ------------------------------------------------------------------------ TMA

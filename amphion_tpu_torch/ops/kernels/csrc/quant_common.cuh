@@ -160,40 +160,13 @@ using hop::mbar_expect_tx;
 using hop::mbar_init;
 using hop::mbar_wait;
 
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ int cluster_blocks() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// The address of this block's shared variable at `addr` in block `rank` of
-// the cluster.
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-// Stores into another block's shared memory that complete their bytes on
-// that block's barrier (both addresses from cluster_addr).
-__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n"
-               :: "r"(addr), "f"(v), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void st_async4(uint32_t addr, const float (&v)[4], uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
-      :: "r"(addr), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar) : "memory");
-}
+using hop::cluster_addr;
+using hop::cluster_arrive_relaxed;
+using hop::cluster_blocks;
+using hop::cluster_rank;
+using hop::cluster_wait;
+using hop::st_async;
+using hop::st_async4;
 
 // 8 values of x as floats (a 16-byte piece of bf16, or two of float32).
 __device__ __forceinline__ void unpack8(const uint4* r, float (&v)[8], const __nv_bfloat16*) {

@@ -22,8 +22,7 @@ import torch
 from amphion_tpu_torch.ops.kernels._build import Fl, I, Kernel, P, no_backward
 
 DECODE_ATTN = Kernel("decode_attn_int8",
-                     {"decode_attn_int8": [P, P, P, P, P, P, P, P, I, I, I, I, I, Fl, P]})
-SPLIT = 256  # cache positions per block of the kernel's first pass
+                     {"decode_attn_int8": [P, P, P, P, P, P, P, I, I, I, I, Fl, P]})
 
 
 def decode_attention_int8_ref(q, ck, cv, ks, vs, valid_len):
@@ -43,9 +42,9 @@ def decode_attention_int8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                           valid_len: torch.Tensor) -> torch.Tensor:
     """Fused single-step decode attention → (B, H, D) float32.
 
-    The kernel splits each (b, h) row of the cache over blocks of `SPLIT`
-    positions (flash-decoding): each block writes its partial max, sum and
-    weighted V-sum, and a second pass combines them."""
+    One launch: a cluster of blocks per (b, h) row splits [0, valid_len[b])
+    into equal shares on the device, and rank 0 merges the blocks' partial
+    max, sum and weighted V-sum in rank order (`csrc/decode_attn_int8.cu`)."""
     b, h, d = q.shape
     if ck.ndim != 4 or ck.shape[:2] != (b, h) or ck.shape[3] != d or cv.shape != ck.shape:
         raise ValueError(f"decode_attention_int8 shapes q {tuple(q.shape)} "
@@ -68,12 +67,11 @@ def decode_attention_int8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     for name, t in (("ck", ck), ("cv", cv), ("ks", ks), ("vs", vs)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    n_split = max(1, -(-s_len // SPLIT))
-    part = torch.empty((b * h, n_split, d + 2), dtype=torch.float32, device=q.device)
+    if any(t.data_ptr() % 16 for t in (q, ck, cv)):
+        raise ValueError("decode_attention_int8 takes q, ck and cv 16-byte aligned")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     DECODE_ATTN.launch("decode_attn_int8", q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-                       ks.data_ptr(), vs.data_ptr(), lens.data_ptr(), part.data_ptr(),
-                       out.data_ptr(), b, h, s_len, d, n_split,
-                       1.0 / math.sqrt(d), stream)
+                       ks.data_ptr(), vs.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                       b, h, s_len, d, 1.0 / math.sqrt(d), stream)
     return out

@@ -34,9 +34,11 @@ batch invariance, and holding the int8/int4 matmul kernels against their
 plain versions on the inputs the voice paths gave them (decode, AR prefill
 and flow-matching rows, with and without the RMSNorm prologue; at the
 decode rows also relaunched and row by row, bit for bit, at the GEMM's
-rows relaunched; the GEMM's launches counted apart) and the
-anti-aliased SnakeBeta kernel on the inputs of one 10 s file's 73
-activations. It then
+rows relaunched; the GEMM's launches counted apart), the decode-attention
+kernel on the fused run's own calls at a spread of decode steps (every
+layer; relaunched bit for bit, and one CUDA kernel a call) and the
+anti-aliased SnakeBeta kernel, to the bit, on the inputs of one 10 s file's
+73 activations. It then
 measures what padding each voice decode to ``max_batch`` rows costs and
 which PyTorch operations make the padding necessary, times each kernel at
 the shapes the paths gave it (by CUDA-graph replays, beside SDPA timed the
@@ -638,6 +640,91 @@ def decode_attn_check(seed: int, cache_len: int) -> float:
     return worst
 
 
+def graph_node_types(fn) -> list:
+    """The node types (CUgraphNodeType: 0 a kernel) of the CUDA graph that
+    one ``fn()`` captures, read by the driver's cuGraphGetNodes."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        types.append(t.value)
+    return types
+
+
+class DecodeAttnRecorder:
+    """While installed, stands in for kernel 8's wrapper where the AR
+    decoder calls it (`modules.llama.decode_attention_int8`): it counts the
+    calls (24 a decode step, one a layer) and keeps the inputs and output of
+    every layer's call at the decode steps in ``steps`` (copies: the cache
+    grows in place). Copying launches no kernel of the port."""
+
+    def __init__(self, steps):
+        from amphion_tpu_torch.modules import llama
+
+        self.mod, self.wrapped = llama, llama.decode_attention_int8
+        self.steps, self.n, self.calls = set(steps), 0, {}
+        llama.decode_attention_int8 = self
+
+    def __call__(self, q, ck, cv, ks, vs, valid_len):
+        out = self.wrapped(q, ck, cv, ks, vs, valid_len)
+        step = self.n // AR_LAYERS
+        self.n += 1
+        if step in self.steps:
+            self.calls.setdefault(step, []).append(
+                tuple(t.clone() for t in (q, ck, cv, ks, vs, valid_len, out)))
+        return out
+
+    def remove(self) -> None:
+        self.mod.decode_attention_int8 = self.wrapped
+
+
+def decode_attn_path_check(rec: DecodeAttnRecorder) -> dict:
+    """Kernel 8 on what the fused run gave it: each recorded call's own
+    output within 1e-4 of max|ref| of `decode_attention_int8_ref` on its
+    inputs, and a relaunch on them bit-equal to it; one call captured in a
+    CUDA graph must be one kernel node. Returns the largest errors."""
+    from amphion_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_int8, decode_attention_int8_ref)
+
+    worst, worst_rel, n = 0.0, 0.0, 0
+    lens = {}
+    for step, calls in sorted(rec.calls.items()):
+        check(f"decode_attn_int8 on the path: step {step} recorded in every layer",
+              len(calls) == AR_LAYERS, f"{len(calls)} calls (want {AR_LAYERS})")
+        lens[step] = int(calls[0][5][0])
+        for layer, (*args, out) in enumerate(calls):
+            ref = decode_attention_int8_ref(*args)
+            err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+            same = torch.equal(decode_attention_int8(*args), out)
+            if not (err <= 1e-4 * scale and same):
+                check(f"decode_attn_int8 on the path: step {step} layer {layer} valid_len "
+                      f"{lens[step]}", False, f"max|err| {err:.3g} (tol 1e-4 of {scale:.3g}), "
+                      f"relaunch bit-equal {same}")
+            worst, worst_rel, n = max(worst, err), max(worst_rel, err / scale), n + 1
+    check("decode_attn_int8 on the path: every recorded call against its plain version",
+          n > 0, f"{n} calls at steps {sorted(lens)} (valid_len {sorted(lens.values())}), "
+          f"max|err| {worst:.3g}, at most {worst_rel:.3g} of max|ref| (tol 1e-4), each "
+          "relaunch bit-equal")
+    args = rec.calls[max(rec.calls)][0][:6]
+    types = graph_node_types(lambda: decode_attention_int8(*args))
+    check("decode_attn_int8: one CUDA kernel per call", types == [0],
+          f"one call captured in a CUDA graph gives nodes of types {types} (0: a kernel)")
+    return {"max_abs_err": worst, "max_rel_err": worst_rel}
+
+
 def ar_reference_phase(seed: int) -> None:
     """A small float32 AR decoded greedily on the card and on the CPU."""
     import copy
@@ -841,6 +928,9 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
     prompt = pipe.ar_style_prompt(ref)
     cache_len = len(content) + 3 + prompt.shape[1] + max_new
     attn_err = decode_attn_check(seed, cache_len)
+    # kernel 8's calls at the first, every 128th and the last decode step,
+    # all 24 layers each
+    rec = DecodeAttnRecorder(sorted({0, *range(128, max_new, 128), max_new - 1}))
     for k in kernels.values():
         k.reset()
     os.environ["AMPHION_FUSED_DECODE_ATTN"] = "1"
@@ -853,6 +943,7 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
         wall = time.perf_counter() - t0
     finally:
         del os.environ["AMPHION_FUSED_DECODE_ATTN"]
+        rec.remove()
     n_attn, n8 = kernels["decode_attn_int8"].launches, kernels["int8_matmul"].launches
     check("fused decode attention launches", n_attn == AR_LAYERS * max_new,
           f"{n_attn} (predicted {AR_LAYERS} layers x {max_new} steps), int8_matmul {n8} "
@@ -860,6 +951,9 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
     check("fused decode attention output", n8 == voice_launches(max_new)
           and bool(torch.isfinite(wav).all()) and wav.ndim == 1 and len(wav) % HOP == 0,
           f"{len(wav)} samples, finite, single utterance in {wall:.2f} s, cache {cache_len}")
+    attn_path = decode_attn_path_check(rec)
+    attn_inputs = {step: [c[:6] for c in calls] for step, calls in rec.calls.items()}
+    del rec
 
     # the int4 voice batch's own AR decode (its four requests' buffers),
     # 64 steps, with the RMSNorm in the qkv and gateup matmuls' prologue
@@ -894,7 +988,7 @@ def fused_phase(v8: dict, v4: dict, seed: int, max_new: int, kernels: dict) -> d
     pro_err = path_quant_check("int4 fused RMSNorm", prec, True)
     return {"cache_len": cache_len, "prompt_len": cache_len - max_new, "fused_wall_s": wall,
             "attn_launches": n_attn, "prologue_launches": pro, "attn_err": attn_err,
-            "prologue_err": pro_err}
+            "attn_path": attn_path, "attn_inputs": attn_inputs, "prologue_err": pro_err}
 
 
 class RowAloneCheck(TorchDispatchMode):
@@ -1027,8 +1121,9 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
     on the first layer's weights, by CUDA-graph replays, beside each one's
     bound (bf16 operations) and library call and, at the FM qkv, the plain
     version, and carry the voice batch's GEMM launches.
-    Decode attention is timed at the single-utterance cache with valid_len
-    at its middle step."""
+    Decode attention is timed on the fused single-utterance run's recorded
+    calls at its first, middle and last recorded steps (each step's 24
+    layers in one replay), and on one random cache at the middle length."""
     from amphion_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_int8, decode_attention_int8_ref)
     from amphion_tpu_torch.ops.kernels.int4_matmul import (
@@ -1176,25 +1271,57 @@ def quant_timing_phase(v8: dict, v4: dict, fused: dict) -> list:
                          by, lib, per_projection_us=per_shape,
                          per_projection_bound_us=per_bound, **more))
 
-    # decode attention at the single-utterance cache, middle step
+    # decode attention: one decode step's 24 recorded calls (each layer's own
+    # cache, so the step streams from device memory as the path does) at the
+    # first, middle and last recorded steps; and, as in earlier runs, one
+    # random cache at the middle step's length called 24 times (L2-resident)
     s_len, d = fused["cache_len"], AR_HIDDEN // AR_HEADS
-    valid = (fused["prompt_len"] + s_len) // 2
+
+    def attn_bound(valid):
+        return _bound(4.0 * AR_HEADS * valid * d,
+                      AR_HEADS * valid * (2 * d + 8) + 8 * AR_HEADS * d + 4)
+
+    inputs = fused["attn_inputs"]
+    steps = sorted(inputs)
+    picked = [steps[0], min(steps, key=lambda st: abs(st - steps[-1] / 2)), steps[-1]]
+    per_len = []
+    for step in picked:
+        calls = inputs[step]
+        valid = int(calls[0][5][0])
+        per_len.append({
+            "step": step, "valid_len": valid,
+            "ms": graph_ms(lambda: [decode_attention_int8(*c) for c in calls]) / len(calls),
+            "plain_ms": graph_ms(lambda: [decode_attention_int8_ref(*c) for c in calls],
+                                 iters=3) / len(calls),
+            "bound_ms": attn_bound(valid)[0]})
+    valid = per_len[1]["valid_len"]
     q = torch.randn((1, AR_HEADS, d), generator=g, device=dev)
     ck, cv = (torch.randint(-127, 128, (1, AR_HEADS, s_len, d), generator=g, device=dev,
                             dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand((1, AR_HEADS, s_len), generator=g, device=dev) * 0.02 for _ in range(2))
     lens = torch.tensor([valid], device=dev, dtype=torch.int32)
-    a_ms = graph_ms(lambda: [decode_attention_int8(q, ck, cv, ks, vs, lens)
-                             for _ in range(AR_LAYERS)]) / AR_LAYERS
-    a_plain = graph_ms(lambda: decode_attention_int8_ref(q, ck, cv, ks, vs, lens))
-    a_bound, a_by = _bound(4.0 * AR_HEADS * valid * d,
-                           AR_HEADS * valid * (2 * d + 8) + 8 * AR_HEADS * d + 4)
-    log(f"timing decode_attn_int8: (1, {AR_HEADS}, S={s_len}, {d}) valid_len {valid}, device "
-        f"time of a CUDA-graph replay, mean of {AR_LAYERS} calls (one step's): kernel "
-        f"{a_ms} ms, plain {a_plain} ms, bound {a_bound} ms ({a_by}), library none "
-        "(no single PyTorch call attends over an int8 cache)")
+    synthetic = {"valid_len": valid, "ms": graph_ms(
+        lambda: [decode_attention_int8(q, ck, cv, ks, vs, lens)
+                 for _ in range(AR_LAYERS)]) / AR_LAYERS,
+        "plain_ms": graph_ms(lambda: decode_attention_int8_ref(q, ck, cv, ks, vs, lens)),
+        "bound_ms": attn_bound(valid)[0]}
+    a_ms, a_plain, a_bound = (sum(r[k] for r in per_len) / len(per_len)
+                              for k in ("ms", "plain_ms", "bound_ms"))
+    log(f"timing decode_attn_int8 ({nvidia_smi()}): (1, {AR_HEADS}, S={s_len}, {d}), device "
+        f"time of a CUDA-graph replay of one decode step's {AR_LAYERS} recorded calls, per "
+        f"call, by step: {json.dumps(per_len)}; mean kernel {a_ms} ms, plain {a_plain} ms, "
+        f"bound {a_bound} ms (bytes); one random cache called {AR_LAYERS} times: "
+        f"{json.dumps(synthetic)}; library none (no single PyTorch call attends over an "
+        "int8 cache)")
     rows.append(_row("decode_attn_int8", "decode_attn_int8.cu", 1202, fused["attn_launches"],
-                     fused["attn_err"], a_ms, a_plain, a_bound, a_by, None))
+                     fused["attn_path"]["max_abs_err"], a_ms, a_plain, a_bound,
+                     attn_bound(valid)[1], None,
+                     ms_is="mean over the first, middle and last recorded decode steps of "
+                           "the fused single-utterance run, per call, each step's 24 "
+                           "recorded calls in one CUDA-graph replay",
+                     per_valid_len=per_len, random_cache=synthetic,
+                     max_rel_err=fused["attn_path"]["max_rel_err"],
+                     max_abs_err_random_inputs=fused["attn_err"]))
     return rows
 
 
@@ -1675,9 +1802,9 @@ def snake_kernel_phase(seed: int) -> dict:
     """Kernels 1 and 2 against their plain versions on the card.
 
     Kernel 2 at the egs training shapes, a ragged T and T < 13, float32
-    within 1e-5 of max|ref| over the whole signal (the same arithmetic with
-    the same edge pad; sinf and FMA contraction differ in the last bits) and
-    bf16 within one bf16 step of the float32 result rounded; `AASnakeBetaFn`'s
+    bit-equal over the whole signal (the same arithmetic, each product and
+    sum rounded on its own, with the same edge pad) and bf16 within one bf16
+    step of the float32 result rounded; `AASnakeBetaFn`'s
     output and gradients (autograd of the unfused chain through cuDNN)
     against the CPU, within 1e-5 / 1e-4 of max|ref| (sums over time in
     another order). Kernel 1 through ``Snake(use_pallas=True)`` at the AMP
@@ -1708,7 +1835,8 @@ def snake_kernel_phase(seed: int) -> dict:
             ref = aa_mod.aa_snakebeta_ref(x, alpha, beta)
             if dtype == torch.float32:
                 err, scale = rel(out, ref)
-                ok, detail = err <= 1e-5 * scale, f"max|err| {err:.3g} (tol 1e-5 of {scale:.3g})"
+                ok = torch.equal(out, ref)
+                detail = f"bit-equal {ok} (max|err| {err:.3g} of {scale:.3g})"
                 errs["aa_snake"] = max(errs["aa_snake"], err)
             else:
                 ok, detail = within_bf16_step(out, ref)
@@ -1799,10 +1927,10 @@ def aa_file_shapes(gcfg, frames: int) -> list:
 
 def aa_path_check(calls: list, want_shapes: list) -> dict:
     """Kernel 2 on what one full-width file gave it: the launches' shapes in
-    the order worked out beforehand, and each launch's own output within
-    1e-5 of max|ref| of `aa_snakebeta_ref` on its own input (float32, the
-    whole signal). Returns the largest error and, for the timing phase, the
-    first input of each shape with that shape's launch count."""
+    the order worked out beforehand, and each launch's own output equal to
+    `aa_snakebeta_ref` on its own input to the bit (float32, the whole
+    signal). Returns the largest error and, for the timing phase, the first
+    input of each shape with that shape's launch count."""
     from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
 
     shapes = [tuple(c[0].shape) for c in calls]
@@ -1814,17 +1942,16 @@ def aa_path_check(calls: list, want_shapes: list) -> dict:
         ref = aa_mod.aa_snakebeta_ref(x, alpha, beta)
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
-        if err > 1e-5 * scale or out.dtype != torch.float32:
+        if not torch.equal(out, ref) or out.dtype != torch.float32:
             check(f"aa_snake on the path {tuple(x.shape)}", False,
-                  f"{out.dtype}, max|err| {err:.3g} (tol 1e-5 of {scale:.3g})")
+                  f"{out.dtype}, max|err| {err:.3g} of {scale:.3g} (want bit-equal)")
         worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
         shape = tuple(x.shape)
         if shape not in reps:
             reps[shape] = [(x, alpha, beta), 0]
         reps[shape][1] += 1
     check("aa_snake on the path: every launch against its plain version", True,
-          f"{len(calls)} launches, max|err| {worst:.3g}, at most {worst_rel:.3g} of max|ref| "
-          "(tol 1e-5)")
+          f"{len(calls)} launches, each bit-equal (max|err| {worst:.3g})")
     return {"max_abs_err": worst, "max_rel_err": worst_rel,
             "inputs": {k: tuple(v) for k, v in reps.items()}}
 

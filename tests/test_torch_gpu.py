@@ -301,10 +301,21 @@ def test_quant_gemm_rows_do_not_depend_on_m(cuda, kind, k, n):
             assert torch.equal(mm(xx[:129], dt), mm(xx, dt)[:129]), (xx.dtype, dt)
 
 
+# The fused decode's cache (S = 1272) at valid_len 1, 3 (not a whole group
+# of 4), 40 (the last ranks' shares empty) and S; shares longer than one
+# chunk of the kernel (1733, and 1999 at D = 128); S not a multiple of 4.
 @pytest.mark.parametrize("b,h,s,d,lens", [(1, 20, 2200, 64, [1733]),
                                           (4, 20, 1600, 64, [1600, 1201, 256, 1]),
-                                          (2, 8, 300, 128, [300, 257])])
+                                          (2, 8, 300, 128, [300, 257]),
+                                          (1, 20, 1272, 64, [1]),
+                                          (1, 20, 1272, 64, [3]),
+                                          (1, 20, 1272, 64, [40]),
+                                          (1, 20, 1272, 64, [1272]),
+                                          (1, 4, 2000, 128, [1999]),
+                                          (2, 3, 301, 64, [301, 150])])
 def test_decode_attention_int8_kernel_matches_plain(cuda, b, h, s, d, lens):
+    """Kernel 8 within 1e-4 of max|ref| (float32 sums in another order), one
+    launch per call, and bit-equal when relaunched."""
     from amphion_tpu_torch.ops.kernels.decode_attention import (
         DECODE_ATTN, decode_attention_int8, decode_attention_int8_ref)
 
@@ -320,6 +331,7 @@ def test_decode_attention_int8_kernel_matches_plain(cuda, b, h, s, d, lens):
     assert DECODE_ATTN.launches == launches + 1
     ref = decode_attention_int8_ref(q, ck, cv, ks, vs, valid)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(decode_attention_int8(q, ck, cv, ks, vs, valid), out)
 
 
 # -- flash-attention backward (kernel 7) ---------------------------------------
@@ -474,11 +486,12 @@ def _rel_err(out, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SNAKE_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SNAKE_SHAPES + [(2, 5001, 48), (1, 12345, 33)], ids=str)
 def test_aa_snake_kernel_matches_plain(cuda, shape, dtype):
     """Kernel 2 against the plain version of the same fused arithmetic over
-    the whole signal, edges included: float32 within 1e-5 of max|ref|,
-    bf16 within one bf16 step of the float32 result rounded."""
+    the whole signal, edges included: float32 bit-equal, bf16 within one
+    bf16 step of the float32 result rounded. The last two shapes end in a
+    partial run of the kernel and take 48 and 33 channels."""
     from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE, aa_snakebeta, aa_snakebeta_ref
 
     g = torch.Generator(cuda).manual_seed(sum(shape))
@@ -490,9 +503,29 @@ def test_aa_snake_kernel_matches_plain(cuda, shape, dtype):
     assert AA_SNAKE.launches == n + 1 and out.dtype == dtype and out.shape == x.shape
     ref = aa_snakebeta_ref(x, alpha, beta)
     if dtype == torch.float32:
-        assert _rel_err(out, ref) <= 1e-5
+        assert torch.equal(out, ref), _rel_err(out, ref)
     else:
         _within_one_bf16_step(out, ref)
+
+
+def test_aa_snake_kernel_exact_where_its_fast_path_is_not(cuda):
+    """Kernel 2 bit-equal to its plain version where its fast sine and
+    division would not give the plain version's bits and it recomputes:
+    |alpha u| beyond the short argument reduction, subnormal sin^2, an
+    extreme beta; and where they do: exact zeros."""
+    from amphion_tpu_torch.ops.kernels.aa_snake import aa_snakebeta, aa_snakebeta_ref
+
+    g = torch.Generator(cuda).manual_seed(11)
+    x = torch.randn((2, 300, 40), generator=g, device=cuda) * 3
+    x[0, 40:80] = 0.0
+    x[0, 120:160] = 1e-30
+    x[1, 200:240] *= 1e4
+    alpha, beta = (torch.rand(40, generator=g, device=cuda) * 1.5 + 0.5 for _ in range(2))
+    alpha[3], alpha[17] = 2e5, 1e-20
+    beta[5], beta[9] = 1e10, 0.0
+    out = aa_snakebeta(x, alpha, beta)
+    ref = aa_snakebeta_ref(x, alpha, beta)
+    assert torch.equal(out, ref), _rel_err(out, ref)
 
 
 def test_aa_snake_function_grads_match_cpu(cuda):

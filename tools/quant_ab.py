@@ -18,9 +18,9 @@ wrappers. Then, on one card, with random weights:
   equal base's bit for bit;
 - at GEMM sizes (M > 8: the smallest GEMM, the voice batch's AR prefill
   and flow-matching qkv), each version's GEMM within `quant_close` of the
-  plain version, whether a relaunch gives the same bits and whether row r
-  at M = 129 equals row r at the full M (reported, not required), from
-  float32 and bf16 x;
+  plain version, whether a relaunch gives the same bits, whether row r
+  at M = 129 equals row r at the full M (reported, not required) and
+  whether its outputs equal base's bit for bit, from float32 and bf16 x;
 - each version timed by CUDA-graph replays (``chip_smoke.graph_ms``) in the
   order base, v1, ..., vn, vn, ..., base: per projection (24 calls a replay,
   microseconds per call) at M = 1, 4 and 8, int4 also with the prologue on
@@ -259,7 +259,7 @@ def check_version(name: str, mods: dict, proj: dict, first: dict) -> None:
           f"M = 1, 4, 8): {'all passed' if not bad else 'FAILED ' + '; '.join(bad)}",
           flush=True)
 
-    bad, rows_same, n_rows = [], 0, 0
+    bad, rows_same, n_rows, gemm = [], 0, 0, []
     for m, k, n in GEMM_CASES:
         gg = torch.Generator("cuda").manual_seed(m)
         x = torch.randn((m, k), generator=gg, device="cuda")
@@ -277,12 +277,19 @@ def check_version(name: str, mods: dict, proj: dict, first: dict) -> None:
                         bad.append(f"{case}: {detail}")
                     for dt in (torch.float32, torch.bfloat16):
                         ref = out if dt == torch.float32 else run(kind, xx, wts[kind], gn, dt)
+                        gemm.append(ref)
                         if not torch.equal(run(kind, xx, wts[kind], gn, dt), ref):
                             bad.append(f"{case} {dt}: a relaunch differs")
                         if m > ROW_M:
                             n_rows += 1
                             rows_same += torch.equal(run(kind, xx[:ROW_M], wts[kind], gn, dt),
                                                      ref[:ROW_M])
+    if "gemm" in first:
+        eq = [torch.equal(a, b) for a, b in zip(gemm, first["gemm"])]
+        print(f"{name:>10}: GEMM outputs (every case above, float32 and bf16) bit-equal to "
+              f"base in {sum(eq)}/{len(eq)}", flush=True)
+    else:
+        first["gemm"] = gemm
     print(f"{name:>10}: GEMM checks (M, K, N in {GEMM_CASES}; int8, int4, int4 with the "
           f"prologue; f32 and bf16 x and output; plain within quant_close, relaunch "
           f"bit-equal): {'all passed' if not bad else 'FAILED ' + '; '.join(bad)}; rows "
