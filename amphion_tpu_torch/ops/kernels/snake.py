@@ -21,8 +21,9 @@ import torch
 from amphion_tpu_torch.ops.kernels._build import I, Kernel, P, no_backward
 
 SNAKE = Kernel("snake", {"snake_fwd": [P, P, P, I, I, I, P],
-                         "snake_bwd": [P, P, P, P, P, P, I, I, I, P],
-                         "snake_rows_per_block": []})
+                         "snake_bwd": [P, P, P, P, P, P, P, I, I, I, P],
+                         "snake_bwd_partials": []})
+_TICKETS: dict = {}  # (device, stream) → the backward's ticket counter
 
 
 def snake_ref(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -77,25 +78,36 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The backward's ticket counter on this stream: one zeroed uint32 that
+    each launch leaves at zero. Allocated outside any CUDA-graph capture,
+    so that a capture's memory never holds it."""
+    key = (device, stream)
+    if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("snake_bwd: call it once on this stream before capturing it")
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
 def snake_bwd(x: torch.Tensor, alpha: torch.Tensor,
               g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Backward → (dx, dα): kernel 1's backward on CUDA tensors (dx and
-    per-block dα partials in one pass, then a fixed-order sum of the
-    partials), `snake_bwd_ref` on CPU tensors."""
+    """Backward → (dx, dα): kernel 1's backward on CUDA tensors (dx, each
+    block's dα partials and their fixed-order sum in one launch),
+    `snake_bwd_ref` on CPU tensors."""
     _check(x, alpha, g)
     if x.device.type == "cpu":
         return snake_bwd_ref(x, alpha, g)
     no_backward("snake_bwd", x, alpha, g)
     b, t, c = x.shape
-    rows = b * t
-    per_block = SNAKE.lib().snake_rows_per_block()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     dx = torch.empty_like(x)
-    partial = torch.empty((-(-rows // per_block), c), dtype=torch.float32, device=x.device)
+    partial = torch.empty((SNAKE.lib().snake_bwd_partials(), c), dtype=torch.float32,
+                          device=x.device)
     dalpha = torch.empty((c,), dtype=torch.float32, device=x.device)
     SNAKE.launch("snake_bwd", x.data_ptr(), alpha.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 partial.data_ptr(), dalpha.data_ptr(), rows, c,
-                 int(x.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(x.device).cuda_stream, tag="bwd")
+                 partial.data_ptr(), dalpha.data_ptr(), _ticket(x.device, stream).data_ptr(),
+                 b * t, c, int(x.dtype == torch.bfloat16), stream, tag="bwd")
     return dx, dalpha
 
 

@@ -3,10 +3,12 @@
 
 Builds the eight CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
 with nvcc (one process each, in parallel) and holds each against its plain
-PyTorch version (the flash-attention forward and backward in bf16 and
-float32, both for bit-equal relaunches, the backward also against float64
-autograd; Snake's forward and backward and the
-anti-aliased SnakeBeta in float32 and bf16, ragged and short signals). Then,
+PyTorch version (the mel at the Vevo and the bigvgan_large front ends,
+also against float64 and for bit-equal relaunches; the flash-attention
+forward and backward in bf16 and float32, both for bit-equal relaunches,
+the backward also against float64 autograd; Snake's forward and backward
+and the anti-aliased SnakeBeta in float32 and bf16, ragged and short
+signals). Then,
 at the full width of ``config/vevo.json`` with random weights from
 ``--seed``:
 
@@ -57,6 +59,7 @@ the last, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -82,6 +85,8 @@ PEAK_BF16, PEAK_F32, PEAK_TF32, HBM = 989e12, 67e12, 495e12, 3.35e12  # H100 SXM
 # (reference seconds, source seconds) of the four requests: one length
 # bucket, so the four share one batch of flash-attention shape (4, 1536, 16, 64)
 REQUESTS = [(2.0, 4.6), (2.6, 5.5), (3.3, 6.8), (4.0, 8.0)]
+# the mel front end of egs/vocoder/gan/bigvgan_large/exp_config.json
+MEL_LARGE = {"n_fft": 1024, "win_size": 1024, "hop_size": 256, "n_mel": 100}
 
 
 def log(msg: str) -> None:
@@ -170,23 +175,36 @@ def grid_len(seconds: float, grid_s: float = 0.5) -> int:
 
 
 def kernel_phase(mel_mod, flash_mod, seed: int) -> dict:
+    from amphion_tpu_torch.ops.kernels.mel import log_mel_f64
     from amphion_tpu_torch.ops.mel import MelConfig
 
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(seed)
     cfg = MelConfig()
-    errs = {"mel": 0.0, "flash": 0.0}
-    log("kernel mel (f32, tol 1e-3 on log-mel):")
-    shapes = [(4, 5 * SR), (2, 119 * HOP + 37)]
-    shapes += sorted({(1, grid_len(s)) for pair in REQUESTS for s in pair})
-    for b, t in shapes:
+    errs = {"mel": 0.0, "mel_f64": 0.0, "mel_plain_f64": 0.0, "flash": 0.0}
+    log("kernel mel (f32, tol 1e-3 on log-mel against the plain version and against the "
+        "same arithmetic in float64; bit-equal on relaunch):")
+    shapes = [(cfg, 4, 5 * SR), (cfg, 2, 119 * HOP + 37), (cfg, 1, (N_FFT - HOP) // 2 + 1)]
+    shapes += sorted({(cfg, 1, grid_len(s)) for pair in REQUESTS for s in pair},
+                     key=lambda c: c[2])
+    large = MelConfig(**MEL_LARGE)  # egs/vocoder/gan/bigvgan_large's front end
+    shapes += [(large, 4, 3 * SR + 77), (large, 1, (large.n_fft - large.hop_size) // 2 + 1)]
+    for c, b, t in shapes:
         y = torch.randn((b, t), generator=g, device=dev) * 0.2
-        out = mel_mod.mel_spectrogram(y, cfg)
-        ref = mel_mod.mel_spectrogram_ref(y, cfg)
-        err = (out - ref).abs().max().item()
+        out = mel_mod.mel_spectrogram(y, c)
+        again = mel_mod.mel_spectrogram(y, c)
+        ref = mel_mod.mel_spectrogram_ref(y, c)
+        f64 = log_mel_f64(y, mel_mod._fbank(c, dev), c.n_fft, c.hop_size, c.win_size, c.clip_val)
+        err, err64 = (out - ref).abs().max().item(), (out.double() - f64).abs().max().item()
+        plain64 = (ref.double() - f64).abs().max().item()
         errs["mel"] = max(errs["mel"], err)
-        check(f"mel B={b} T={t}", out.shape == ref.shape and err <= 1e-3,
-              f"shape {tuple(out.shape)} max|err| {err:.3g}")
+        errs["mel_f64"] = max(errs["mel_f64"], err64)
+        errs["mel_plain_f64"] = max(errs["mel_plain_f64"], plain64)
+        same = torch.equal(out, again)
+        check(f"mel hop={c.hop_size} n_mel={c.n_mel} B={b} T={t}",
+              out.shape == ref.shape and err <= 1e-3 and err64 <= 1e-3 and same,
+              f"shape {tuple(out.shape)} max|err| {err:.3g}, against float64 {err64:.3g} "
+              f"(plain version {plain64:.3g}); bit-equal on relaunch: {same}")
     cases = [  # b, lq, lk, h, kvh, d, causal, mask
         (4, 1536, 1536, 16, 16, 64, False, True),
         (2, 300, 300, 16, 16, 64, True, True),
@@ -391,6 +409,40 @@ def profile_rerun(svc, audio, seeds, mode: str = "timbre") -> dict:
             "top_kernels_ms": [[n, us / 1e3] for us, n in top[:8]]}
 
 
+@functools.lru_cache(maxsize=2)
+def _stft_window(device) -> torch.Tensor:
+    return F.pad(torch.hann_window(480, device=device), ((N_FFT - 480) // 2, (N_FFT - 480) // 2))
+
+
+def library_mel(y, fb, clip_val: float):
+    """The mel of the default config as one chain of PyTorch calls: reflect
+    pad, torch.stft (cuFFT), magnitude, mel matmul, log. The yardstick of
+    the kernel's ``library_ms``; the port never calls it."""
+    pad = (N_FFT - HOP) // 2
+    yp = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    spec = torch.stft(yp, N_FFT, HOP, window=_stft_window(y.device), center=False,
+                      return_complex=True)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-6)
+    return torch.log(torch.clamp(fb @ mag, min=clip_val))
+
+
+def mel_work(lengths: list, fb) -> tuple[float, float, float]:
+    """(operations, bytes, bound ms) of one mel call at the default config,
+    the mean over (1, T) calls of the given lengths. Least operations per
+    frame: a real-input FFT (complex FFT of n/2 points, 2.5 (n/2) log2(n/2),
+    plus its split pass, about 6 per half-bin), the magnitude (4 per bin)
+    and the mel projection over the filterbank's nonzeros only (2 per
+    nonzero; the Slaney triangles overlap little); bytes: the samples read
+    and the log-mel written once."""
+    frames = sum(t // HOP for t in lengths) / len(lengths)
+    samples = sum(lengths) / len(lengths)
+    f, nnz = N_FFT // 2 + 1, int((fb != 0).sum())
+    flops = frames * (2.5 * (N_FFT / 2) * math.log2(N_FFT / 2) + 6 * (N_FFT // 2)
+                      + 4 * f + 2 * nnz)
+    nbytes = 4 * (samples + frames * fb.shape[0])
+    return flops, nbytes, max(flops / PEAK_F32, nbytes / HBM) * 1e3
+
+
 def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
     from amphion_tpu_torch.ops.mel import MelConfig, _fbank
 
@@ -399,35 +451,23 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
     g = torch.Generator(dev).manual_seed(1)
     ys = [torch.randn((1, t), generator=g, device=dev) * 0.2 for t in sl["mel_lengths"]]
     fb = _fbank(cfg, dev)
-    win = F.pad(torch.hann_window(cfg.win_size, device=dev),
-                ((N_FFT - cfg.win_size) // 2, (N_FFT - cfg.win_size + 1) // 2))
-    pad = (N_FFT - HOP) // 2
-
-    def library_mel(y):  # torch.stft + magnitude + mel matmul + log
-        yp = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
-        spec = torch.stft(yp, N_FFT, HOP, window=win, center=False, return_complex=True)
-        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-6)
-        return torch.log(torch.clamp(fb @ mag, min=cfg.clip_val))
-
     n = len(ys)
-    mel_ms = gpu_ms(lambda: [mel_mod.mel_spectrogram(y, cfg) for y in ys]) / n
-    mel_plain = gpu_ms(lambda: [mel_mod.mel_spectrogram_ref(y, cfg) for y in ys]) / n
-    mel_lib = gpu_ms(lambda: [library_mel(y) for y in ys]) / n
-    lib_err = max((library_mel(y) - mel_mod.mel_spectrogram_ref(y, cfg)).abs().max().item()
-                  for y in ys)
+    kernel = lambda: [mel_mod.mel_spectrogram(y, cfg) for y in ys]  # noqa: E731
+    plain = lambda: [mel_mod.mel_spectrogram_ref(y, cfg) for y in ys]  # noqa: E731
+    library = lambda: [library_mel(y, fb, cfg.clip_val) for y in ys]  # noqa: E731
+    log(f"timing mel_spectrogram, launched from Python (gpu_ms): kernel "
+        f"{gpu_ms(kernel) / n:.5f} ms, library {gpu_ms(library) / n:.5f} ms")
+    # the plain version copies its DFT basis from the host at each call, which
+    # a CUDA graph cannot capture: it is timed launched from Python
+    mel_ms, mel_lib, mel_plain = graph_ms(kernel) / n, graph_ms(library) / n, gpu_ms(plain) / n
+    lib_err = max((library_mel(y, fb, cfg.clip_val) - mel_mod.mel_spectrogram_ref(y, cfg))
+                  .abs().max().item() for y in ys)
     frames = sum(y.shape[1] // HOP for y in ys) / n
-    samples = sum(y.shape[1] for y in ys) / n
-    # least operations per frame: a real-input FFT (complex FFT of n/2 points,
-    # 2.5 (n/2) log2(n/2), plus its split pass, about 6 per half-bin), the
-    # magnitude (4 per bin) and the mel projection over the filterbank's
-    # nonzeros only (2 per nonzero; the Slaney triangles overlap little)
-    f, nnz = N_FFT // 2 + 1, int((fb != 0).sum())
-    mel_flops = frames * (2.5 * (N_FFT / 2) * math.log2(N_FFT / 2) + 6 * (N_FFT // 2)
-                          + 4 * f + 2 * nnz)
-    mel_bytes = 4 * (samples + frames * cfg.n_mel)
-    mel_bound = max(mel_flops / PEAK_F32, mel_bytes / HBM) * 1e3
-    log(f"timing mel_spectrogram: kernel {mel_ms:.5f} ms, plain {mel_plain:.5f} ms, "
-        f"library (torch.stft) {mel_lib:.5f} ms (max|diff| {lib_err:.2g}), bound "
+    mel_flops, mel_bytes, mel_bound = mel_work([y.shape[1] for y in ys], fb)
+    nnz = int((fb != 0).sum())
+    log(f"timing mel_spectrogram ({nvidia_smi()}): kernel {mel_ms:.5f} ms and library "
+        f"(torch.stft) {mel_lib:.5f} ms (max|diff| {lib_err:.2g}) by graph replays, plain "
+        f"{mel_plain:.5f} ms launched from Python, bound "
         f"{mel_bound:.3g} ms ({mel_flops / frames:.0f} operations per frame, filterbank "
         f"nonzeros {nnz}), mean over the {n} main-path calls of (1, T), "
         f"T in {sorted(set(sl['mel_lengths']))}")
@@ -457,7 +497,11 @@ def timing_phase(mel_mod, flash_mod, sl: dict, errs: dict) -> list:
     return [
         _row("mel_spectrogram", "mel.cu", 425, sl["launches"]["mel"], errs["mel"], mel_ms,
             mel_plain, mel_bound,
-            "operations" if mel_flops / PEAK_F32 >= mel_bytes / HBM else "bytes", mel_lib),
+            "operations" if mel_flops / PEAK_F32 >= mel_bytes / HBM else "bytes", mel_lib,
+            timing="graph replays (kernel, library); plain launched from Python",
+            max_abs_err_vs_float64=errs["mel_f64"],
+            plain_max_abs_err_vs_float64=errs["mel_plain_f64"],
+            ms_is=f"mean over the {n} main-path calls of a timbre batch"),
         _row("flash_attn_fwd", "flash_attn_fwd.cu", 843, sl["launches"]["flash_attn_fwd"],
             errs["flash"], fl_ms, fl_plain, fl_bound,
             "operations" if fl_flops / PEAK_BF16 >= fl_bytes / HBM else "bytes", fl_lib,
@@ -1808,9 +1852,10 @@ def snake_kernel_phase(seed: int) -> dict:
     output and gradients (autograd of the unfused chain through cuDNN)
     against the CPU, within 1e-5 / 1e-4 of max|ref| (sums over time in
     another order). Kernel 1 through ``Snake(use_pallas=True)`` at the AMP
-    shapes and a ragged T: y, dx and dalpha within 1e-5 of max|ref| in
-    float32 (bf16: y and dx within one step, dalpha 1e-5), dalpha bit-equal
-    on relaunch. Returns the largest float32 errors."""
+    shapes, a ragged T and a C that is not a multiple of 4: y and dx equal
+    to the plain versions' float32 results to the bit, dalpha within 1e-5
+    of max|ref| (bf16: y and dx within one step), dalpha bit-equal on
+    relaunch. Returns the largest float32 errors."""
     from amphion_tpu_torch.modules.activations import Snake
     from amphion_tpu_torch.ops.kernels import aa_snake as aa_mod
     from amphion_tpu_torch.ops.kernels import snake as snake_mod
@@ -1861,7 +1906,7 @@ def snake_kernel_phase(seed: int) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         log(f"kernel snake forward and backward through Snake(use_pallas=True) ({dtype}):")
-        for b, t, c in AMP_SHAPES + [(2, 300, 8)]:
+        for b, t, c in AMP_SHAPES + [(2, 300, 8), (2, 300, 37)]:
             m = Snake(c, use_pallas=True).to(DEV)
             with torch.no_grad():
                 m.alpha.copy_(next(params(c)))
@@ -1879,9 +1924,10 @@ def snake_kernel_phase(seed: int) -> dict:
             ok_a = err_a <= 1e-5 * scale_a
             if dtype == torch.float32:
                 (err_y, scale_y), (err_x, scale_x) = rel(y, ref_y), rel(x.grad, ref_dx)
-                ok = err_y <= 1e-5 * scale_y and err_x <= 1e-5 * scale_x
-                detail = (f"y {err_y:.3g} of {scale_y:.3g}, dx {err_x:.3g} of {scale_x:.3g}, "
-                          f"dalpha {err_a:.3g} of {scale_a:.3g} (tol 1e-5 of max|ref|)")
+                ok = torch.equal(y, ref_y) and torch.equal(x.grad, ref_dx)
+                detail = (f"y {err_y:.3g} of {scale_y:.3g}, dx {err_x:.3g} of {scale_x:.3g} "
+                          f"(want bit-equal: {ok}), dalpha {err_a:.3g} of {scale_a:.3g} (tol "
+                          "1e-5 of max|ref|)")
                 errs["snake"] = max(errs["snake"], err_y)
                 errs["snake_bwd"] = max(errs["snake_bwd"], err_x, err_a)
             else:
@@ -2183,7 +2229,9 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
     beside it as the nearest library figure (``unfused_chain_ms``). Kernel
     1 is driven on its own through ``Snake(use_pallas=True)``, forward and
     backward once at each AMP shape (no model path runs it; the counts are
-    reset before and read after), then timed per shape. Every time is the
+    reset before and read after), then timed per shape, on one input set
+    (which stays in L2 between calls) and on four in turn (``ms_streaming``,
+    from device memory). Every time is the
     device time of a CUDA-graph replay of many calls (`graph_ms`): launched
     one by one from Python, kernels this small wait on the host. Bounds:
     bytes (x read, out written; kernel 1's backward also g) over 3.35 TB/s,
@@ -2243,6 +2291,13 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
                 graph_ms(lambda: snake_mod.snake_bwd(x, alpha, gout)),
                 graph_ms(lambda: snake_mod.snake_bwd_ref(x, alpha, gout))),
                 SNAKE_BWD_OPS * n, 12.0 * n + 8 * c))
+            # the same calls over four input sets in turn: one set (at most
+            # 47 MB moved) stays in the 50 MB L2 between graph-replayed calls
+            sets = [(x, gout)] + [(torch.randn_like(x), torch.randn_like(x)) for _ in range(3)]
+            per_shape["snake"][-1]["ms_streaming"] = graph_ms(
+                lambda: [snake_mod.snake(xs, alpha) for xs, _ in sets]) / len(sets)
+            per_shape["snake_bwd"][-1]["ms_streaming"] = graph_ms(
+                lambda: [snake_mod.snake_bwd(xs, alpha, gs) for xs, gs in sets]) / len(sets)
     card = nvidia_smi()
     for key, rows in per_shape.items():
         log(f"timing {key} ({card}), float32 per shape: " + json.dumps(rows))
@@ -2280,7 +2335,11 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
         w = [1] * len(rows)
         out.append(_row(key, "snake.cu", line, driven.get(tag, 0), errs[key],
                         mean(rows, "ms", w), mean(rows, "plain_ms", w), mean(rows, "bound_ms", w),
-                        by(rows), None, per_shape=rows, ms_is="mean over the four AMP shapes",
+                        by(rows), None, per_shape=rows, ms_is="mean over the four AMP shapes, "
+                        "one input set (it stays in L2 from call to call)",
+                        ms_streaming=mean(rows, "ms_streaming", w),
+                        ms_streaming_is="the same over four input sets in turn, from device "
+                                        "memory",
                         via="pallas_kernels.py:78",
                         launches_are="Snake(use_pallas=True) forward and backward once at each "
                                      "AMP shape; no model path runs kernel 1",

@@ -52,6 +52,55 @@ def test_mel_kernel_matches_plain(cuda, b, t):
     assert (out - ref).abs().max().item() <= 1e-3
 
 
+# Kernel 3 at the configurations the repo has and at its n_fft limits: the
+# base mel (config/base.json), bigvgan_large's (egs/vocoder/gan/bigvgan_large),
+# n_fft 256 and 2048. Lengths: a frame count that is not a multiple of the
+# kernel's 4-frame tile at B = 4, and T one sample above the reflect pad.
+MEL_CONFIGS = {
+    "base": MelConfig(),
+    "bigvgan_large": MelConfig(n_fft=1024, win_size=1024, hop_size=256, n_mel=100),
+    "n_fft_256": MelConfig(sample_rate=16000, n_fft=256, win_size=200, hop_size=80, n_mel=40,
+                           fmax=8000.0),
+    "n_fft_2048": MelConfig(n_fft=2048, win_size=1200, hop_size=300, n_mel=128),
+}
+MEL_CASES = [("base", 4, 101 * 120 + 37), ("base", 1, 453), ("bigvgan_large", 4, 91 * 256 + 5),
+             ("bigvgan_large", 1, 385), ("n_fft_256", 2, 16000 + 11), ("n_fft_2048", 2, 48000 + 7)]
+
+
+@pytest.mark.parametrize("name,b,t", MEL_CASES)
+def test_mel_kernel_against_plain_and_float64(cuda, name, b, t):
+    """Kernel 3 (an FFT) within 1e-3 of the plain float32 version (a direct
+    DFT) and of the same arithmetic in float64 on the log-mel, one launch a
+    call, and bit-equal on relaunch."""
+    from amphion_tpu_torch.ops.kernels.mel import log_mel_f64
+    from amphion_tpu_torch.ops.mel import _fbank
+
+    cfg = MEL_CONFIGS[name]
+    g = torch.Generator(cuda).manual_seed(t)
+    y = torch.randn((b, t), generator=g, device=cuda) * 0.3
+    n = MEL.launches
+    out = mel_spectrogram(y, cfg)
+    again = mel_spectrogram(y, cfg)
+    torch.cuda.synchronize()
+    assert MEL.launches == n + 2
+    ref = mel_spectrogram_ref(y, cfg)
+    f64 = log_mel_f64(y, _fbank(cfg, cuda), cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
+    assert out.shape == ref.shape == (b, cfg.n_mel, t // cfg.hop_size)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (out.double() - f64).abs().max().item() <= 1e-3
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n_fft", [1000, 128, 4096])
+def test_mel_kernel_rejects_unsupported_n_fft(cuda, n_fft):
+    """Kernel 3 takes n_fft a power of two from 256 to 2048; on the card the
+    wrapper names the limit for any other (the plain version takes any)."""
+    cfg = MelConfig(n_fft=n_fft, win_size=min(480, n_fft), hop_size=n_fft // 4)
+    y = torch.randn((1, 24000), device=cuda)
+    with pytest.raises(ValueError, match="power of two from 256 to 2048"):
+        mel_spectrogram(y, cfg)
+
+
 # The tiles' edges: the bf16 forward takes 128 query rows and 64 keys a
 # tile, the float32 kernels 64 rows and 32 keys; (129, 193) is one past a
 # tile on both sides, "short_keys" has fewer keys than one tile, "d128" and
@@ -579,6 +628,107 @@ def test_snake_kernels_match_plain(cuda, shape, dtype):
     assert _rel_err(m.alpha.grad, ref_da) <= 1e-5
     _, da = snake_bwd(x.detach(), a, gout)
     assert torch.equal(da, m.alpha.grad)
+
+
+def _snake_inputs(cuda, shape, dtype, seed, scale=3.0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+    a = torch.rand(shape[-1], generator=g, device=cuda) * 1.5 + 0.5
+    gout = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x, a, gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 320, 256), (2, 300, 37), (3, 1001, 6), (1, 7, 3)],
+                         ids=str)
+def test_snake_kernels_bit_equal_to_plain_and_on_relaunch(cuda, shape, dtype):
+    """Kernel 1's y and dx equal the plain versions' float32 results to the
+    bit (bf16: within one bf16 step), dx, y and dalpha bit-equal on
+    relaunch, with C a multiple of 4 (16-byte accesses) and not (one
+    channel a thread)."""
+    from amphion_tpu_torch.ops.kernels.snake import snake, snake_bwd, snake_bwd_ref, snake_ref
+
+    x, a, gout = _snake_inputs(cuda, shape, dtype, sum(shape) + 5)
+    y, y2 = snake(x, a), snake(x, a)
+    (dx, da), (dx2, da2) = snake_bwd(x, a, gout), snake_bwd(x, a, gout)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(dx, dx2) and torch.equal(da, da2)
+    ref_dx, ref_da = snake_bwd_ref(x, a, gout)
+    if dtype == torch.float32:
+        assert torch.equal(y, snake_ref(x, a)), _rel_err(y, snake_ref(x, a))
+        assert torch.equal(dx, ref_dx), _rel_err(dx, ref_dx)
+    else:
+        _within_one_bf16_step(y, snake_ref(x, a))
+        _within_one_bf16_step(dx, ref_dx)
+    assert _rel_err(da, ref_da) <= 1e-5
+
+
+def test_snake_kernels_on_unaligned_tensors(cuda):
+    """x, g and the outputs starting 4 bytes past a 16-byte boundary (a
+    contiguous view at an offset): the kernels take one channel a thread."""
+    from amphion_tpu_torch.ops.kernels.snake import snake, snake_bwd, snake_bwd_ref, snake_ref
+
+    shape = (2, 500, 64)
+    n = shape[0] * shape[1] * shape[2]
+    x = (torch.randn(n + 1, device=cuda) * 3)[1:].view(shape)
+    gout = torch.randn(n + 1, device=cuda)[1:].view(shape)
+    a = torch.rand(64, device=cuda) + 0.5
+    assert x.data_ptr() % 16 and gout.data_ptr() % 16
+    assert torch.equal(snake(x, a), snake_ref(x, a))
+    dx, da = snake_bwd(x, a, gout)
+    ref_dx, ref_da = snake_bwd_ref(x, a, gout)
+    assert torch.equal(dx, ref_dx) and _rel_err(da, ref_da) <= 1e-5
+
+
+def test_snake_kernels_exact_where_their_fast_path_is_not(cuda):
+    """Kernel 1 bit-equal to its plain version where its fast sine and
+    division would not give the plain version's bits and it recomputes:
+    |alpha x| and |2 alpha x| beyond the short argument reduction (105615),
+    subnormal sin^2, an extreme alpha; and exact zeros."""
+    from amphion_tpu_torch.ops.kernels.snake import snake, snake_bwd, snake_bwd_ref, snake_ref
+
+    x, a, gout = _snake_inputs(cuda, (2, 300, 40), torch.float32, 13)
+    x[0, 40:80] = 0.0
+    x[0, 120:160] = 1e-30
+    x[1, 200:240] *= 1e5
+    x[1, 250:260] = 60000.0
+    a[3], a[17], a[21] = 2e5, 1e-20, 1e12
+    y = snake(x, a)
+    dx, da = snake_bwd(x, a, gout)
+    assert (a * x.abs().amax(dim=(0, 1)) >= 105615).any()
+    assert torch.equal(y, snake_ref(x, a)), _rel_err(y, snake_ref(x, a))
+    ref_dx, ref_da = snake_bwd_ref(x, a, gout)
+    assert torch.equal(dx, ref_dx), _rel_err(dx, ref_dx)
+    finite = ref_da.isfinite()
+    assert torch.equal(finite, da.isfinite())
+    assert _rel_err(da[finite], ref_da[finite]) <= 1e-5
+
+
+def test_snake_bwd_dalpha_bit_equal_across_graph_replays(cuda):
+    """Kernel 1's backward captured in a CUDA graph: its ticket counter is
+    back at zero after each launch, so every replay's dalpha (and dx) equals
+    the eager launch's to the bit."""
+    from amphion_tpu_torch.ops.kernels.snake import SNAKE, snake_bwd
+
+    x, a, gout = _snake_inputs(cuda, (16, 1280, 128), torch.float32, 17)
+    dx0, da0 = snake_bwd(x, a, gout)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        snake_bwd(x, a, gout)  # the side stream's ticket, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = SNAKE.tagged.get("bwd", 0)
+    with torch.cuda.graph(graph, stream=side):
+        dx, da = snake_bwd(x, a, gout)
+    assert SNAKE.tagged["bwd"] == n + 1
+    firsts = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        firsts.append((dx.clone(), da.clone()))
+    for got_dx, got_da in firsts:
+        assert torch.equal(got_da, da0) and torch.equal(got_dx, dx0)
 
 
 def test_snake_wrappers_raise_under_grad(cuda):

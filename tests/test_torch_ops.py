@@ -88,6 +88,77 @@ def test_mel_config_and_filterbank_match_jax():
         jax_mel_filterbank(24000, 1024, 80, 0.0, 12000.0))
 
 
+# (sample rate, n_fft, win_size, n_mel, fmax): config/base.json, the bigvgan_large
+# egs config, and the mel kernel's smallest and largest n_fft
+MEL_TABLE_CASES = [(24000, 1024, 480, 80, 12000.0), (24000, 1024, 1024, 100, 12000.0),
+                   (16000, 256, 200, 40, 8000.0), (24000, 2048, 1200, 128, 12000.0)]
+
+
+def _stockham_rfft(x: np.ndarray, tw: np.ndarray) -> np.ndarray:
+    """The real FFT as `csrc/mel.cu` runs it, in complex64 over the
+    wrapper's float32 twiddles: z[m] = x[2m] + i x[2m+1], Stockham passes
+    of radix 8 (the last 4 or 2), then the split into bins k and M - k."""
+    w = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    z = (x[..., 0::2] + 1j * x[..., 1::2]).astype(np.complex64)
+    m, ns = z.shape[-1], 1
+    while ns < m:
+        r = min(8, m // ns)
+        j = np.arange(m // r)
+        k = j & (ns - 1)
+        a = np.stack([z[..., j + q * (m // r)] for q in range(r)])  # (r, ..., m / r)
+        a = a * w[np.arange(r)[:, None] * k * (2 * m // (ns * r))][:, None]
+        dft = np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r).astype(np.complex64)
+        a = np.tensordot(dft, a, axes=1)
+        out = np.empty_like(z)
+        for q in range(r):
+            out[..., (j - k) * r + k + q * ns] = a[q]
+        z, ns = out, ns * r
+    k = np.arange(m // 2 + 1)
+    zk, zm = z[..., k], z[..., (m - k) % m]
+    xe, xo = (zk + np.conj(zm)) / 2, -1j * (zk - np.conj(zm)) / 2
+    p = w[k] * xo
+    spec = np.empty(x.shape[:-1] + (m + 1,), np.complex64)
+    spec[..., m - k] = np.conj(xe - p)
+    spec[..., k] = xe + p
+    return spec
+
+
+@pytest.mark.parametrize("sr,n_fft,win,n_mel,fmax", MEL_TABLE_CASES)
+def test_mel_kernel_tables_reproduce_the_plain_arithmetic(sr, n_fft, win, n_mel, fmax):
+    """The mel kernel's host tables: twiddles within float32 rounding of
+    float64, the window's taps equal to the plain version's window, the
+    band tables expanding back to the filterbank and giving fbank @ mag,
+    and a numpy run of the kernel's FFT passes over them within 1e-5 of
+    np.fft.rfft relative to the largest bin."""
+    from amphion_tpu_torch.ops.kernels import mel as kmel
+
+    tap0, ntaps, win_taps, tw = kmel.fft_tables(n_fft, win)
+    e = np.arange(n_fft)
+    np.testing.assert_allclose(tw[:, 0] + 1j * tw[:, 1], np.exp(-2j * np.pi * e / n_fft),
+                               rtol=0, atol=6e-8)
+    full = tstft._padded_window(win, n_fft)
+    assert np.array_equal(full[tap0: tap0 + ntaps], win_taps)
+    assert not full[:tap0].any() and not full[tap0 + ntaps:].any()
+
+    fb = tmel.mel_filterbank(sr, n_fft, n_mel, 0.0, fmax)
+    bands, weights = kmel.band_tables(fb)
+    dense = np.zeros_like(fb)
+    for m, (first, count, off) in enumerate(bands):
+        dense[m, first: first + count] = weights[off: off + count]
+    assert np.array_equal(dense, fb) and bands[-1, 2] + bands[-1, 1] == weights.size
+    assert weights.size < fb.size / 4  # the kernel sums only the bands
+
+    rng = np.random.default_rng(n_fft)
+    frames = (rng.standard_normal((3, n_fft)) * full).astype(np.float32)
+    spec = _stockham_rfft(frames, tw)
+    ref = np.fft.rfft(frames.astype(np.float64))
+    assert np.abs(spec - ref).max() <= 1e-5 * np.abs(ref).max()
+    mag = np.abs(ref)
+    banded = np.stack([[weights[o: o + c].astype(np.float64) @ mag[i, f: f + c]
+                        for f, c, o in bands] for i in range(3)])
+    np.testing.assert_allclose(banded, mag @ fb.T.astype(np.float64), rtol=1e-12, atol=0)
+
+
 def test_config_loader_matches_jax_loader():
     assert load_config(ROOT / "config/vevo.json") == \
         jax_load_config(ROOT / "config/vevo.json").to_dict()
@@ -156,8 +227,9 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "amphion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = (sorted((ROOT / "amphion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
+    assert len(files) > 20 and (ROOT / "tools" / "kernel_ab.py") in files
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
