@@ -9,7 +9,6 @@ from pathlib import Path
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def load_wav(path: str | Path, sr: int | None = None) -> tuple[np.ndarray, int]:
@@ -42,5 +41,7 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resampling with the smallest rational ratio."""
     if orig_sr == target_sr:
         return x
+    from scipy.signal import resample_poly  # seconds to import: only when resampling
+
     g = math.gcd(orig_sr, target_sr)
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)

@@ -14,7 +14,11 @@ Quantized decode (``compute_dtype`` int8 or int4) is prepared once, by
 `prepare_for_decode` when the pipeline is built: the weights are cast to
 bf16, every decoder projection is quantized (fused q/k/v and gate/up), and
 the int8 KV cache is on unless ``AMPHION_KV_QUANT=0``. ``lm_head`` stays
-bf16 and unquantized, as in JAX.
+bf16 and unquantized, as in JAX; in the quantized decode it runs through the
+row-invariant bf16 GEMV (`ops/kernels/bf16_gemv`), so that, with the
+row-invariant projections and norms, a row's logits do not depend on the
+other rows of its batch (not promised under float32/bfloat16, whose
+projections are cuBLAS products).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from amphion_tpu_torch.modules.llama import (
     cast_params,
     load_quantized,
 )
+from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear
 from amphion_tpu_torch.ops.ragged import pack_segments_right, right_pack_valid
 from amphion_tpu_torch.ops.sampling import sample_logits
 
@@ -126,6 +131,13 @@ class ARTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
+    def head(self, h):
+        """``lm_head``; in the quantized decode through the row-invariant
+        bf16 GEMV (the head's weights are bf16 there)."""
+        if self.cfg.decode_quant != "none":
+            return bf16_linear(h, self.lm_head.weight)
+        return self.lm_head(h)
+
     def forward(self, input_tokens, input_mask, output_tokens, output_mask,
                 ref_mel=None, ref_mel_mask=None, style_tokens=None, style_mask=None):
         """Teacher-forced logits over the packed sequence
@@ -180,7 +192,7 @@ class ARTransformer(nn.Module):
             ids.append(prompt_output_tokens.long())
         x = self.embed_tokens(torch.cat(ids, dim=1))
         h, caches = self.decoder.forward_cached(x, caches, 0)
-        return self.lm_head(h[:, -1]), caches, x.shape[1]
+        return self.head(h[:, -1]), caches, x.shape[1]
 
     def prefill_ragged(self, input_tokens, input_len, caches, kv_valid,
                        prompt_output_tokens=None, prompt_output_len=None,
@@ -207,12 +219,14 @@ class ARTransformer(nn.Module):
                                   [input_len + 2, out_lens])
         h, caches = self.decoder.forward_cached(self.embed_tokens(ids), caches,
                                                 cache_index, kv_valid)
-        return self.lm_head(h[:, -1]), caches, ids.shape[1]
+        return self.head(h[:, -1]), caches, ids.shape[1]
 
-    def step(self, token, caches, cache_index: int, kv_valid=None):
+    def step(self, token, caches, cache_index, kv_valid=None):
+        """One token a row at ``cache_index``: an int shared by the rows, or
+        a (B,) tensor of each row's position → (logits, caches)."""
         h, caches = self.decoder.forward_cached(self.embed_tokens(token)[:, None, :],
                                                 caches, cache_index, kv_valid)
-        return self.lm_head(h[:, -1]), caches
+        return self.head(h[:, -1]), caches
 
 
 def prepare_for_decode(model: ARTransformer, compute_dtype: str) -> ARTransformer:
@@ -293,18 +307,23 @@ def ar_transformer_generate_ragged(model: ARTransformer, input_tokens: torch.Ten
                                    top_k: int = 40, top_p: float = 1.0,
                                    prompt_output_tokens: torch.Tensor | None = None,
                                    prompt_output_len: torch.Tensor | None = None,
-                                   compute_dtype: str = "bfloat16"):
+                                   compute_dtype: str = "bfloat16",
+                                   capacity: int | None = None):
     """Ragged batched decode (the serving path): B requests with their own
     content (and output-prompt) lengths, right-padded buffers with (B,)
     lengths, one generator per request, so a request's draws do not depend
-    on the batch → (tokens (B, max_new), lengths (B,))."""
+    on the batch → (tokens (B, max_new), lengths (B,)). ``capacity`` widens
+    the KV cache past the prefill plus ``max_new`` positions: the continuous
+    engine's solo path gives its own, since on the card the attention's
+    sums, and with them the bits of a request's logits, depend on the
+    cache's length."""
     dt = _check(model, compute_dtype)
     dev = model.device
     b, li = input_tokens.shape
     input_len = input_len.to(dev, torch.long)
     lo = 1 if prompt_output_tokens is None else 1 + prompt_output_tokens.shape[1]
     l0 = li + 2 + lo  # shared prefill length: every sample ends at l0 - 1
-    total = l0 + max_new
+    total = max(l0 + max_new, capacity or 0)
     out_lens = torch.ones((b,), dtype=torch.long, device=dev)
     if prompt_output_tokens is not None:
         out_lens = out_lens + prompt_output_len.to(dev, torch.long)

@@ -9,14 +9,18 @@ Submodules carry the Flax scope names (``layer_3.attn.q_proj``,
 walk. Full-sequence attention always goes through
 `ops/kernels/flash_attention.flash_attention`; quantized projections go
 through `ops/kernels/int8_matmul` (kernel 4) and `ops/kernels/int4_matmul`
-(kernel 5), and the single-step decode over the int8 KV cache, when
+(kernel 5), the single-step decode over the int8 KV cache, when
 ``AMPHION_FUSED_DECODE_ATTN`` is set, through
-`ops/kernels/decode_attention` (kernel 8): each the CUDA kernel on a CUDA
-tensor, its plain version on the CPU.
+`ops/kernels/decode_attention` (kernel 8), and the decoder's norms in its
+cached path through `ops/kernels/rms_norm` (a row-invariant RMSNorm): each
+the CUDA kernel on a CUDA tensor, its plain version on the CPU.
 
 The decoder's caches are preallocated and written in place (JAX returns
 new arrays): ``LlamaDecoder.forward_cached`` returns the same list it was
-given.
+given. A decode step takes one shared position (an int) or one per row (a
+(B,) tensor, the continuous engine's cursors, as the JAX engine's `vmap`
+gives each lane its own ``cache_index``); with a tensor nothing reads a
+value on the host, so the step can be captured in a CUDA graph.
 
 Training: with ``LlamaConfig.remat`` each block runs under
 ``torch.utils.checkpoint`` (the JAX ``nn.remat``), and full-sequence
@@ -43,6 +47,7 @@ from amphion_tpu_torch.ops.kernels.int4_matmul import (
     quantize_weight_int4,
 )
 from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
+from amphion_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_ref
 
 QUANTS = ("none", "int8", "int4")
 
@@ -96,8 +101,13 @@ class RMSNorm(nn.Module):
         applies the norm as its prologue (kernel 5)."""
         if passthrough:
             return x, self.scale
-        var = x.float().pow(2).mean(dim=-1, keepdim=True)
-        return (x * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
+        return rms_norm_ref(x, self.scale, self.eps)
+
+    def forward_cached(self, x):
+        """The norm as the decoder's cached path runs it: one fixed-order
+        reduction per row (kernel `rms_norm` on the card), so a row's
+        result does not depend on the rows beside it."""
+        return rms_norm(x, self.scale, self.eps)
 
 
 class AdaptiveRMSNorm(nn.Module):
@@ -138,15 +148,18 @@ def full_rotary_tables(cos: torch.Tensor, sin: torch.Tensor):
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  keep_f32: bool = False):
     """x (B, T, H, D); cos/sin (T, D/2), or full width (T, D) from
-    `full_rotary_tables`. Rotates in float32, ``[x1 c - x2 s | x2 c + x1 s]``
-    (as ``x c + rot(x) s`` with the same roundings), and returns x's dtype,
+    `full_rotary_tables`, or (B, T, D) with a row each. Rotates in float32,
+    ``[x1 c - x2 s | x2 c + x1 s]`` (as ``x c + rot(x) s`` with the same
+    roundings), and returns x's dtype,
     or float32 with ``keep_f32`` (the JAX decoder's promotion: its bf16 q/k
     times the float32 tables stay float32)."""
     if 2 * cos.shape[-1] == x.shape[-1]:
         cos, sin = full_rotary_tables(cos, sin)
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
     xf = x.float()
     x1, x2 = xf.chunk(2, dim=-1)
-    out = xf * cos[None, :, None, :] + torch.cat([x2, x1], dim=-1) * sin[None, :, None, :]
+    out = xf * cos[:, :, None, :] + torch.cat([x2, x1], dim=-1) * sin[:, :, None, :]
     return out if keep_f32 else out.to(x.dtype)
 
 
@@ -311,6 +324,14 @@ def _q8(x: torch.Tensor):
     return torch.round(x / s[..., None]).to(torch.int8), s.float()
 
 
+def _per_row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over (B, H, ...) operands, one batch row at a time: cuBLAS
+    picks its batched product by the batch count (B·H), and on the card a
+    decode step's scores and values changed a row's bits between 1 and 4
+    rows; one product per row gives each row the product a lone row gets."""
+    return torch.cat([torch.matmul(a[i:i + 1], b[i:i + 1]) for i in range(a.shape[0])])
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -348,11 +369,13 @@ class LlamaAttention(nn.Module):
         out = flash_attention(q, k, v.contiguous(), kv_mask, causal)
         return self.o_proj(out.reshape(b, t, c.num_heads * c.head_dim))
 
-    def forward_cached(self, x, cos, sin, cache, cache_index: int, allowed,
+    def forward_cached(self, x, cos, sin, cache, cache_index, allowed,
                        biased: bool = False, kv_mask=None, rms_scale=None):
         """x (B, T, D) new tokens at positions ``cache_index + arange(T)``
-        (cos/sin are those rows of the full-width tables); their K/V are
-        written into ``cache`` in place. ``allowed`` (B or 1, 1, T, S) bool
+        (cos/sin are those rows of the full-width tables), or, with
+        ``cache_index`` a (B,) tensor and T = 1, row b's token at position
+        ``cache_index[b]`` (cos/sin (B, 1, D)); their K/V are written into
+        ``cache`` in place. ``allowed`` (B or 1, 1, T, S) bool
         marks the keys each query may attend (causality, ``kv_mask`` and the
         prefill's ``kv_valid`` combined, once per step, by the decoder);
         ``biased`` says the JAX path would carry it as an additive bias (the
@@ -368,19 +391,28 @@ class LlamaAttention(nn.Module):
         q, k, v = self._qkv(x, rms_scale)
         qk = apply_rotary(torch.cat([q, k], dim=2), cos, sin, keep_f32=True)
         q, k = qk[:, :, :h], qk[:, :, h:]
-        end = cache_index + t
+        per_row = torch.is_tensor(cache_index)
+        if per_row:  # one position a row: write row b at cache_index[b]
+            rows = torch.arange(b, device=x.device)
+            at = (rows, slice(None), cache_index)  # head-major int8 cache
+            at_dense = (rows, cache_index)
+        else:
+            at = (slice(None), slice(None), slice(cache_index, cache_index + t))
+            at_dense = (slice(None), slice(cache_index, cache_index + t))
         mha = hkv == h
         neg = torch.finfo(torch.float32).min
         if len(cache) == 4:  # int8 head-major cache (B, H, S, D) + scales (B, H, S)
             ck, cv, ks, vs = cache
             kvq, kvs = _q8(torch.cat([k, v.float()], dim=2))
-            ck[:, :, cache_index:end] = kvq[:, :hkv]
-            cv[:, :, cache_index:end] = kvq[:, hkv:]
-            ks[:, :, cache_index:end] = kvs[:, :hkv]
-            vs[:, :, cache_index:end] = kvs[:, hkv:]
-            if (mha and not biased and t == 1 and kv_mask is None
+            if per_row:
+                kvq, kvs = kvq[:, :, 0], kvs[:, :, 0]
+            ck[at] = kvq[:, :hkv]
+            cv[at] = kvq[:, hkv:]
+            ks[at] = kvs[:, :hkv]
+            vs[at] = kvs[:, hkv:]
+            if (mha and not biased and t == 1 and kv_mask is None and not per_row
                     and os.environ.get("AMPHION_FUSED_DECODE_ATTN")):
-                valid = torch.full((b,), end, dtype=torch.int32, device=x.device)
+                valid = torch.full((b,), cache_index + 1, dtype=torch.int32, device=x.device)
                 o = decode_attention_int8(q[:, 0].contiguous(), ck, cv, ks, vs, valid)
                 return self.o_proj(o.to(dt).reshape(b, 1, h * c.head_dim))
             if mha and not biased:
@@ -388,19 +420,19 @@ class LlamaAttention(nn.Module):
                 # out of the head-dim contraction, so they multiply the scores
                 # and the probabilities, in the working dtype, as in JAX (the
                 # int8 cache is exact in bf16 and float32 alike)
-                scores = torch.matmul(q.transpose(1, 2), ck.float().transpose(2, 3))
+                scores = _per_row_matmul(q.transpose(1, 2), ck.float().transpose(2, 3))
                 scores = scores * ks.to(dt).float()[:, :, None, :] / np.sqrt(c.head_dim)
                 probs = torch.softmax(scores.masked_fill(~allowed, neg), dim=-1).to(dt)
                 probs = probs * vs.to(dt)[:, :, None, :]
-                out = torch.matmul(probs, cv.to(dt)).transpose(1, 2)
+                out = _per_row_matmul(probs, cv.to(dt)).transpose(1, 2)
                 return self.o_proj(out.reshape(b, t, h * c.head_dim))
             # dense dequantizing tail (a mask bias, or GQA)
             k = (ck.to(dt) * ks.to(dt)[..., None]).transpose(1, 2)
             v = (cv.to(dt) * vs.to(dt)[..., None]).transpose(1, 2)
         else:  # dense cache (B, S, Hkv, D)
             ck, cv = cache
-            ck[:, cache_index:end] = k.to(ck.dtype)
-            cv[:, cache_index:end] = v.to(cv.dtype)
+            ck[at_dense] = (k[:, 0] if per_row else k).to(ck.dtype)
+            cv[at_dense] = (v[:, 0] if per_row else v).to(cv.dtype)
             k, v = ck, cv
         if not mha:
             k = k.repeat_interleave(h // hkv, dim=2)
@@ -457,14 +489,16 @@ class LlamaBlock(nn.Module):
         # in their prologue (switch read as the JAX block reads it)
         fuse_rms = (c.decode_quant == "int4" and not c.adaptive
                     and os.environ.get("AMPHION_FUSED_RMS") == "1")
-        h, in_scale = self.input_norm(x, passthrough=fuse_rms), None
         if fuse_rms:
-            h, in_scale = h
+            h, in_scale = self.input_norm(x, passthrough=True)
+        else:
+            h, in_scale = self.input_norm.forward_cached(x), None
         x = x + self.attn.forward_cached(h, cos, sin, cache, cache_index, allowed, biased,
                                          kv_mask, rms_scale=in_scale)
-        h, post_scale = self.post_norm(x, passthrough=fuse_rms), None
         if fuse_rms:
-            h, post_scale = h
+            h, post_scale = self.post_norm(x, passthrough=True)
+        else:
+            h, post_scale = self.post_norm.forward_cached(x), None
         return x + self.mlp(h, rms_scale=post_scale)
 
 
@@ -554,26 +588,36 @@ class LlamaDecoder(nn.Module):
                 *rotary_tables(c.max_position, c.head_dim, c.rope_theta, device))
         return self._rope[device]
 
-    def forward_cached(self, x, caches, cache_index: int, kv_valid=None):
+    def forward_cached(self, x, caches, cache_index, kv_valid=None):
         """x (B, T, D) appended at ``cache_index`` → (hidden, caches).
 
-        ``kv_valid`` (B, S) marks the cache slots that hold real content (the
-        ragged serving layout left-pads shorter prompts). In a prefill
-        (T > 1) a pad query keeps its own slot attendable, so no softmax row
-        is fully masked; in a step (T == 1) the validity is a key mask, not a
-        bias, which keeps the int8 cache's fast paths. The mask is built once
-        here for every layer."""
+        ``cache_index`` is an int, the position of the first new token in
+        every row, or, for a step (T == 1), a (B,) int tensor of each row's
+        own position (its cursor), which the caller keeps below
+        ``max_position``. ``kv_valid`` (B, S) marks the cache slots that
+        hold real content (the ragged serving layout left-pads shorter
+        prompts). In a prefill (T > 1) a pad query keeps its own slot
+        attendable, so no softmax row is fully masked; in a step (T == 1)
+        the validity is a key mask, not a bias, which keeps the int8
+        cache's fast paths. The mask is built once here for every layer."""
         c = self.cfg
         t = x.shape[1]
-        end = cache_index + t
-        if end > c.max_position:
-            raise ValueError(f"position {end} exceeds max_position {c.max_position}")
         cos_t, sin_t = self._tables(x.device)
-        cos, sin = cos_t[cache_index:end], sin_t[cache_index:end]
         s_len = caches[0][0].shape[2 if len(caches[0]) == 4 else 1]
-        q_pos = cache_index + torch.arange(t, device=x.device)[:, None]
         k_pos = torch.arange(s_len, device=x.device)[None, :]
-        allowed = (k_pos <= q_pos)[None, None]
+        if torch.is_tensor(cache_index):
+            if t != 1:
+                raise ValueError("per-row positions take one token a row")
+            cache_index = cache_index.long()
+            cos, sin = cos_t[cache_index][:, None], sin_t[cache_index][:, None]
+            allowed = (k_pos <= cache_index[:, None])[:, None, None, :]
+        else:
+            end = cache_index + t
+            if end > c.max_position:
+                raise ValueError(f"position {end} exceeds max_position {c.max_position}")
+            cos, sin = cos_t[cache_index:end], sin_t[cache_index:end]
+            q_pos = cache_index + torch.arange(t, device=x.device)[:, None]
+            allowed = (k_pos <= q_pos)[None, None]
         step_mask = None
         if kv_valid is not None:
             if t > 1:
@@ -584,7 +628,7 @@ class LlamaDecoder(nn.Module):
         for i in range(c.num_layers):
             x = getattr(self, f"layer_{i}").forward_cached(
                 x, cos, sin, caches[i], cache_index, allowed, t > 1, step_mask)
-        return self.final_norm(x), caches
+        return self.final_norm.forward_cached(x), caches
 
 
 def sinusoidal_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:

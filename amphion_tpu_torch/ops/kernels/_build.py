@@ -9,7 +9,9 @@ rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
 
 A `Kernel` owns one library. Its ``launch`` calls a C function, raises if
 the function reports a CUDA error, and counts the launch: the count is how
-a run shows that its main path went through the kernel.
+a run shows that its main path went through the kernel. A launch made
+while a CUDA graph is being captured runs nothing then; `LaunchTape`
+takes such counts back and adds them again at each replay of the graph.
 """
 
 from __future__ import annotations
@@ -43,10 +45,14 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+KERNELS: list["Kernel"] = []  # every kernel of the package, in creation order
+
+
 class Kernel:
     """One ``csrc/<name>.cu`` library, built on first use."""
 
     def __init__(self, name: str, signatures: dict[str, list]):
+        KERNELS.append(self)
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.signatures = signatures  # C function → ctypes argtypes
@@ -119,6 +125,47 @@ class Kernel:
         with self._lock:
             self.launches = 0
             self.tagged = {}
+
+    def counts(self) -> tuple[int, dict]:
+        with self._lock:
+            return self.launches, dict(self.tagged)
+
+    def add(self, launches: int, tagged: dict) -> None:
+        with self._lock:
+            self.launches += launches
+            for t, n in tagged.items():
+                self.tagged[t] = self.tagged.get(t, 0) + n
+
+
+class LaunchTape:
+    """The launches a CUDA graph holds, counted where they happen: at its
+    replays. Around a capture (``with tape:``) it records what each
+    wrapper counted and takes it back, since capturing runs nothing;
+    `replayed` adds it to the kernels' counts, once per replay."""
+
+    def __init__(self):
+        self.delta: list[tuple[Kernel, int, dict]] = []
+
+    def __enter__(self) -> "LaunchTape":
+        self._before = {id(k): k.counts() for k in KERNELS}
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for k in KERNELS:
+            n0, t0 = self._before.get(id(k), (0, {}))
+            n1, t1 = k.counts()
+            tags = {t: c - t0.get(t, 0) for t, c in t1.items() if c != t0.get(t, 0)}
+            if n1 != n0 or tags:
+                self.delta.append((k, n1 - n0, tags))
+                k.add(n0 - n1, {t: -c for t, c in tags.items()})
+
+    def launches(self) -> dict[str, int]:
+        """Launches of one replay, by kernel name."""
+        return {k.name: n for k, n, _ in self.delta}
+
+    def replayed(self, times: int = 1) -> None:
+        for k, n, tags in self.delta:
+            k.add(n * times, {t: c * times for t, c in tags.items()})
 
 
 def no_backward(name: str, *tensors) -> None:

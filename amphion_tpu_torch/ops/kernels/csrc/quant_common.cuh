@@ -1,7 +1,8 @@
 // Shared pieces of the weight-only quantized matmuls (int8_matmul.cu,
 // int4_matmul.cu): the whole GEMV (M <= 8) and GEMM (M > 8) kernels, which
 // the two files instantiate with their weight formats, and their bf16
-// pre-pass.
+// pre-pass. bf16_gemv.cu instantiates the GEMV for unquantized bf16
+// weights (the AR's lm_head).
 //
 // The GEMM (`qmm_wgmma`, M > 8: the AR prefill, the flow-matching
 // estimator) is bound by the tensor cores' bf16 rate at the path's
@@ -195,7 +196,7 @@ struct Stage {
 };
 
 // x: (M, K) f32 or bf16; w: (N, K * CHUNK_BYTES / CH) bytes; scale: (N,)
-// or, GROUPED, (K / CH, N); g: (K,) RMSNorm gain or null (16-byte
+// (null: none, as for bf16 weights) or, GROUPED, (K / CH, N); g: (K,) RMSNorm gain or null (16-byte
 // aligned); out: (M, N). Grid: ceil(N / 16) column tiles x the cluster's
 // blocks, which split the K / CH chunks evenly; a cluster of one block is
 // launched as a plain grid and meets no cluster barrier. Warp w takes the
@@ -260,7 +261,8 @@ gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
   S cur, nxt;
   int c = c_begin + warp;
   if (c < c_end) load(cur, c);
-  if (!F::GROUPED && tid < GEMV_COLS) colscale[tid] = tid < rows ? scale[n0 + tid] : 0.f;
+  if (!F::GROUPED && tid < GEMV_COLS)  // no scale: unit scales, an exact product
+    colscale[tid] = tid < rows ? (scale != nullptr ? scale[n0 + tid] : 1.f) : 0.f;
 
   float rinv = 0.f;  // of x row gq, with the prologue
   if (g != nullptr) {

@@ -183,46 +183,65 @@ def _tokenizer(cfg: dict, name: str, vocab: int) -> RepCodec:
         num_blocks=m.get("num_blocks", 2)))
 
 
-def _build(cfg: dict, seed: int, device, compute_dtype: str, voice: bool) -> VevoPipeline:
-    device = resolve_device(device)
+def vevo_modules(cfg: dict, voice: bool) -> dict:
+    """The Vevo modules of a config, with torch's default initialisation:
+    ``style_tokenizer``, ``fm``, ``vocoder`` and, with ``voice``,
+    ``content_tokenizer`` and ``ar`` (FFN 4096 unless ``model.ar`` names
+    ``intermediate``)."""
     p, model = cfg["preprocess"], cfg.get("model", {})
-    mel_cfg = MelConfig.from_preprocess_cfg(p)
     fm_m, ar_m = model.get("fm", {}), model.get("ar", {})
     voc_m = model.get("vocos", {})
     in_vocab = ar_m.get("input_vocab", 32)
     vocab = fm_m.get("token_vocab", ar_m.get("output_vocab", 8192))
-    content = ar = None
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        style = _tokenizer(cfg, "style_tokenizer", vocab)
-        fm = FlowMatchingTransformer(FMTConfig(
+    mods = {
+        "style_tokenizer": _tokenizer(cfg, "style_tokenizer", vocab),
+        "fm": FlowMatchingTransformer(FMTConfig(
             token_vocab=vocab, n_mel=p["n_mel"], hidden=fm_m.get("hidden", 1024),
-            num_layers=fm_m.get("num_layers", 16),
-            num_heads=fm_m.get("num_heads", 16)))
-        vocoder = VocosGenerator(VocosConfig(
+            num_layers=fm_m.get("num_layers", 16), num_heads=fm_m.get("num_heads", 16))),
+        "vocoder": VocosGenerator(VocosConfig(
             n_mel=p["n_mel"], dim=voc_m.get("dim", 512),
             intermediate_dim=voc_m.get("intermediate_dim", 1536),
-            num_layers=voc_m.get("num_layers", 8), n_fft=p["n_fft"],
-            hop_size=p["hop_size"]))
-        if voice:
-            content = _tokenizer(cfg, "content_tokenizer", in_vocab)
-            ar = ARTransformer(ARTransformerConfig(
-                input_vocab=in_vocab, output_vocab=vocab,
-                hidden=ar_m.get("hidden", 1024), num_layers=ar_m.get("num_layers", 16),
-                num_heads=ar_m.get("num_heads", 16),
-                intermediate=ar_m.get("intermediate", 4096)))
+            num_layers=voc_m.get("num_layers", 8), n_fft=p["n_fft"], hop_size=p["hop_size"])),
+    }
+    if voice:
+        mods["content_tokenizer"] = _tokenizer(cfg, "content_tokenizer", in_vocab)
+        mods["ar"] = ARTransformer(ARTransformerConfig(
+            input_vocab=in_vocab, output_vocab=vocab,
+            hidden=ar_m.get("hidden", 1024), num_layers=ar_m.get("num_layers", 16),
+            num_heads=ar_m.get("num_heads", 16), intermediate=ar_m.get("intermediate", 4096)))
+    return mods
+
+
+def assemble_pipeline(cfg: dict, mods: dict, device, compute_dtype: str) -> VevoPipeline:
+    """A `VevoPipeline` of `vevo_modules`' modules holding their final
+    weights: each moved to ``device`` in eval mode, the FM and the AR
+    prepared once for ``compute_dtype``, the mel front end as the SSL
+    features (no HuBERT)."""
+    mel_cfg = MelConfig.from_preprocess_cfg(cfg["preprocess"])
 
     def ssl(audio: torch.Tensor) -> torch.Tensor:
         t = len(audio) // mel_cfg.hop_size * mel_cfg.hop_size
         return mel_spectrogram(audio[:t][None], mel_cfg)[0].T
 
+    def on(name):
+        m = mods.get(name)
+        return None if m is None else m.to(device).eval()
+
+    ar = on("ar")
     return VevoPipeline(
-        style_tokenizer=style.to(device).eval(),
-        fm=prepare_for_inference(fm.to(device).eval(), compute_dtype),
-        vocoder=vocoder.to(device).eval(), ssl_extractor=ssl, mel_cfg=mel_cfg,
-        compute_dtype=compute_dtype,
-        content_tokenizer=None if content is None else content.to(device).eval(),
-        ar=None if ar is None else prepare_for_decode(ar.to(device).eval(), compute_dtype))
+        style_tokenizer=on("style_tokenizer"),
+        fm=prepare_for_inference(on("fm"), compute_dtype),
+        vocoder=on("vocoder"), ssl_extractor=ssl, mel_cfg=mel_cfg,
+        compute_dtype=compute_dtype, content_tokenizer=on("content_tokenizer"),
+        ar=None if ar is None else prepare_for_decode(ar, compute_dtype))
+
+
+def _build(cfg: dict, seed: int, device, compute_dtype: str, voice: bool) -> VevoPipeline:
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        mods = vevo_modules(cfg, voice)
+    return assemble_pipeline(cfg, mods, device, compute_dtype)
 
 
 def build_vevo_timbre(cfg: dict, seed: int = 0, device=None,

@@ -14,10 +14,18 @@ mel) in the caller's thread, one at a time, and are coalesced by
 
 Each request draws from its own ``torch.Generator``s seeded from its
 ``seed`` (timbre: the FM noise from ``seed``; voice: the AR's tokens from
-``2 * seed + 1`` and the FM noise from ``2 * seed + 2``), and the voice
-decode always runs ``max_batch`` rows, so a request's tokens do not depend
-on the batch it lands in (its waveform only within the flow matching's
-float tolerance).
+``2 * seed + 1`` and the FM noise from ``2 * seed + 2``), so a request's
+tokens do not depend on the batch it lands in (its waveform only within the
+flow matching's float tolerance). Under int8/int4 the decode is
+row-invariant on the card up to 8 rows (projections on the GEMV path,
+``lm_head``, norms and attention products computed row by row); under
+float32/bf16 its cuBLAS products are not, and the decode runs
+``max_batch`` rows whatever the batch holds, as it does under int8/int4
+when ``max_batch`` exceeds 8 (the projections' GEMM path, whose rows do not
+depend on their number but differ from the GEMV's).
+
+`serving/continuous_service.VevoContinuousService` replaces the dispatch
+(`_init_dispatch`) and reuses the front end and the FM tail.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 
 from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
 from amphion_tpu_torch.models.vc.flow_matching_transformer import fmt_inference_ragged
+from amphion_tpu_torch.ops.kernels.int8_matmul import GEMV_MAX_M
 from amphion_tpu_torch.serving.batcher import MicroBatcher, bucket_ladder
 
 
@@ -91,6 +100,9 @@ class VevoService:
         self.fm_solver = fm_solver
         self.cfg_scale = cfg_scale
         self._frontend_lock = threading.Lock()
+        self._init_dispatch(max_batch, max_wait_ms)
+
+    def _init_dispatch(self, max_batch, max_wait_ms):
         self.batcher = MicroBatcher(self._run_batch, self._bucket_of,
                                     max_batch=max_batch, max_wait_ms=max_wait_ms)
 
@@ -164,37 +176,48 @@ class VevoService:
         mode, shape, lp_tok = bucket
         pipe = self.pipe
         dev = pipe.device
-        csf = pipe.fm.cfg.cond_scale_factor
         if mode == "voice":
             lc, lo = shape
-            gens = [voice_generators(r.seed, dev) for r in reqs]
-            # the decode always runs max_batch rows (the first request
-            # repeated in the free ones, its rows discarded): every op then
-            # sees the same shapes whatever the batch holds, so a request's
-            # tokens do not depend on its company (on the card the bf16
-            # lm_head product and the RMSNorm mean change their last bits
-            # with the row count)
-            pad = [reqs[0]] * (self.batcher.max_batch - len(reqs))
+            pad = []
+            if (pipe.compute_dtype in ("float32", "bfloat16")
+                    or self.batcher.max_batch > GEMV_MAX_M):
+                # the decode runs max_batch rows (the first request repeated
+                # in the free ones, its rows discarded): every op then sees
+                # the same shapes whatever the batch holds, so a request's
+                # tokens do not depend on its company (on the card cuBLAS's
+                # products change their last bits with the row count).
+                # int8/int4 up to GEMV_MAX_M rows need no padding: their
+                # step is row-invariant there.
+                pad = [reqs[0]] * (self.batcher.max_batch - len(reqs))
             rows = reqs + pad
-            ar_gens = [g[0] for g in gens] + [voice_generators(r.seed, dev)[0] for r in pad]
             toks, gen_len = ar_transformer_generate_ragged(
                 pipe.ar, torch.stack([_pad_to(r.content, lc) for r in rows]),
                 torch.tensor([len(r.content) for r in rows], device=dev),
-                ar_gens, max_new=self.max_new,
+                [voice_generators(r.seed, dev)[0] for r in rows], max_new=self.max_new,
                 temperature=self.temperature, top_k=self.top_k,
                 prompt_output_tokens=torch.stack([_pad_to(r.prompt_out, lo) for r in rows]),
                 prompt_output_len=torch.tensor([len(r.prompt_out) for r in rows], device=dev),
                 compute_dtype=pipe.compute_dtype)
             toks, gen_len = toks[: len(reqs)], gen_len[: len(reqs)]
             tl = [max(int(n), 1) for n in gen_len.cpu()]
-            lt_tok = self._ladder(max(tl), self.max_new)
-            target = toks[:, :lt_tok]
-            fm_gens = [g[1] for g in gens]
+            target = toks[:, :self._ladder(max(tl), self.max_new)]
+            fm_gens = [voice_generators(r.seed, dev)[1] for r in reqs]
         else:
             (lt_tok,) = shape
             target = torch.stack([_pad_to(r.target_style, lt_tok) for r in reqs])
             tl = [max(len(r.target_style), 1) for r in reqs]
             fm_gens = [torch.Generator(dev).manual_seed(r.seed) for r in reqs]
+        return self._fm_tail(lp_tok, reqs, target, tl, fm_gens)
+
+    @torch.inference_mode()
+    def _fm_tail(self, lp_tok: int, reqs: list[_VevoCoreRequest], target: torch.Tensor,
+                 tl: list[int], fm_gens: list[torch.Generator]) -> list[np.ndarray]:
+        """Flow matching and Vocos for a batch: ``target`` (B, Lt) style
+        tokens of ``tl`` valid each, prompted by each request's FM prompt
+        (padded to ``lp_tok``) → the waveforms."""
+        pipe = self.pipe
+        dev = pipe.device
+        csf = pipe.fm.cfg.cond_scale_factor
         tlen = torch.tensor(tl, device=dev)
         ptoks = torch.stack([_pad_to(r.fm_prompt_tokens, lp_tok) for r in reqs])
         plen = torch.tensor([len(r.fm_prompt_tokens) for r in reqs], device=dev)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`amphion_tpu_torch`) on one CUDA card.
 
-Builds the eight CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
+Builds the ten CUDA kernels from ``amphion_tpu_torch/ops/kernels/csrc``
 with nvcc (one process each, in parallel) and holds each against its plain
 PyTorch version (the mel at the Vevo and the bigvgan_large front ends,
 also against float64 and for bit-equal relaunches; the flash-attention
@@ -19,11 +19,19 @@ at the full width of ``config/vevo.json`` with random weights from
   must repeat steps 5-8; a small FM and AR step on the card against the CPU;
 - Vevo-Timbre: four concurrent requests (mel and flash-attention kernels);
 - Vevo-Voice: four concurrent requests in int8, then in int4 (AR decode of
-  ``--max-new`` steps through the int8/int4 matmul kernels and the int8 KV
-  cache, then flow matching through the same kernels);
+  ``--max-new`` steps through the int8/int4 matmul kernels, the RMSNorm and
+  lm_head kernels and the int8 KV cache, then flow matching through the
+  same matmul kernels), request 0 alone equal to request 0 in the batch;
 - one single-utterance int8 Vevo-Voice run with the fused decode-attention
   kernel (``AMPHION_FUSED_DECODE_ATTN=1``) and an int4 decode with the
   fused RMSNorm prologue (``AMPHION_FUSED_RMS=1``);
+- the continuous engine in int8 and in int4 (its step a CUDA graph per
+  rung): four staggered requests through the graph engine and an eager
+  engine, each equal to the request's solo decode; every row's logits
+  bit-equal at 1, 2, 4 and 8 rows; a bf16 engine's tokens alone and in
+  company (reported); then `bins/serve.py` as a user starts it (FM and AR
+  checkpoints, `_build_vevo_service`, prewarm, `serve` on 127.0.0.1)
+  answering six voice requests from `serving/loadgen.py`;
 - BigVGAN copy synthesis at the width of
   ``egs/vocoder/gan/bigvgan/exp_config.json`` through
   `amphion_tpu_torch.bins.vocoder.inference.main` on six files of 2-10 s
@@ -41,11 +49,11 @@ kernel on the fused run's own calls at a spread of decode steps (every
 layer; relaunched bit for bit, and one CUDA kernel a call) and the
 anti-aliased SnakeBeta kernel, to the bit, on the inputs of one 10 s file's
 73 activations. It then
-measures what padding each voice decode to ``max_batch`` rows costs and
-which PyTorch operations make the padding necessary, times each kernel at
-the shapes the paths gave it (by CUDA-graph replays, beside SDPA timed the
-same way for the flash kernels), and profiles one voice batch, two steps of
-each trainer and one 10 s copy synthesis. Run from the repository root:
+measures the eager decode at 1-16 rows, holding row 0's tokens equal up to
+8 rows and every PyTorch operation row-invariant, times each kernel at the shapes the
+paths gave it (by CUDA-graph replays, beside SDPA timed the same way for
+the flash kernels), and profiles a decode chunk of each engine, two steps
+of each trainer and one 10 s copy synthesis. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--max-new 768]
 
@@ -59,6 +67,7 @@ the last, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import functools
 import gc
 import json
@@ -684,14 +693,17 @@ def decode_attn_check(seed: int, cache_len: int) -> float:
     return worst
 
 
-def graph_node_types(fn) -> list:
+def graph_node_types(fn, generators=()) -> list:
     """The node types (CUgraphNodeType: 0 a kernel) of the CUDA graph that
-    one ``fn()`` captures, read by the driver's cuGraphGetNodes."""
+    one ``fn()`` captures, read by the driver's cuGraphGetNodes; the
+    ``generators`` that ``fn`` draws from are registered with the graph."""
     import ctypes
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for gen in generators:
+        graph.register_generator_state(gen)
     with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
         fn()
     cu = ctypes.CDLL("libcuda.so.1")
@@ -908,6 +920,13 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
               f"mel {launches['mel']} (3 per request), flash {launches['flash_attn_fwd']} "
               f"({FM_LAYERS}x{FM_STEPS}), {other} {launches[other]}, decode_attn 0 "
               "(the ragged step passes a key mask)")
+        norms = 2 * AR_LAYERS + 1
+        check(f"voice {dtype} rms_norm/bf16_gemv launches",
+              launches["rms_norm"] == norms * (1 + max_new)
+              and launches["bf16_gemv"] == 1 + max_new,
+              f"rms_norm {launches['rms_norm']} (predicted {norms} norms x (the prefill + "
+              f"{max_new} steps) = {norms * (1 + max_new)}), bf16_gemv {launches['bf16_gemv']} "
+              f"(predicted the lm_head of the prefill and of each step, {1 + max_new})")
         gen = []
         for i, (r, w) in enumerate(zip(reqs, wavs)):
             toks, n = rec.row_of(-1, r)
@@ -944,18 +963,12 @@ def voice_phase(cfg, seed: int, dtype: str, audio: list | None, max_new: int,
               f"{shapes['fm_rows']})")
         path_err = path_quant_check(f"voice {dtype}", prec, dtype == "int4")
         del prec
-        trace = None
-        if dtype == "int8":
-            t0 = time.perf_counter()
-            trace = profile_rerun(svc, audio, seeds, "voice")
-            log(f"voice {dtype} trace (profiled rerun, {time.perf_counter() - t0:.1f} s with "
-                "the profiler's processing): " + json.dumps(trace))
     finally:
         svc.shutdown()
         service_mod.ar_transformer_generate_ragged = rec.inner
     return {"pipe": pipe, "audio": audio, "launches": launches, "gemm_launches": gemm_launches,
             "perf": perf,
-            "shapes": shapes, "trace": trace, "path_err": path_err, "seeds": seeds,
+            "shapes": shapes, "path_err": path_err, "seeds": seeds,
             "ar_inputs": rec.calls[-1][:4]}
 
 
@@ -1041,8 +1054,12 @@ class RowAloneCheck(TorchDispatchMode):
     row) and compares row 0 of the two results bit for bit, counting the
     operations whose bits differ by operation and call site. Skips
     operations that write to their inputs or draw random numbers, and those
-    whose result or inputs do not lead with the batch. The port's own CUDA
-    kernels run outside PyTorch's dispatcher and are not seen here."""
+    whose result or inputs do not lead with the batch, and the allocations
+    whose bits are not set (``empty_like``). The port's own CUDA kernels run
+    outside PyTorch's dispatcher and are not seen here."""
+
+    UNSET = ("aten::empty", "aten::empty_like", "aten::new_empty", "aten::empty_strided",
+             "aten::new_empty_strided")
 
     def __init__(self, b: int):
         super().__init__()
@@ -1059,8 +1076,8 @@ class RowAloneCheck(TorchDispatchMode):
         out = func(*args, **kwargs)
         self.ops += 1
         if (func._schema.is_mutable or torch.Tag.nondeterministic_seeded in func.tags
-                or not isinstance(out, torch.Tensor) or out.dim() == 0
-                or out.shape[0] != self.b):
+                or func._schema.name in self.UNSET or not isinstance(out, torch.Tensor)
+                or out.dim() == 0 or out.shape[0] != self.b):
             return out
         flat, spec = tree_flatten((args, kwargs))
         cut = [isinstance(a, torch.Tensor) and a.dim() > 0 and a.shape[0] == self.b
@@ -1083,15 +1100,16 @@ class RowAloneCheck(TorchDispatchMode):
 
 
 def padding_phase(v8: dict) -> dict:
-    """What padding every voice decode to the service's ``max_batch`` rows
-    costs, and why it is there. Decodes the int8 voice batch's requests
-    (row 0 is request 0, rows past the fourth repeat it, as the service
-    pads) at each row count of DECODE_ROWS: wall and device time per decode
-    step, each the difference of a 72-step and an 8-step decode (the
-    prefill cancels), the device time from a profiled rerun; and how many
-    of row 0's tokens agree between consecutive row counts. Then one
-    prefill and two steps at 4 rows under `RowAloneCheck`: the PyTorch
-    operations whose row 0 changes its bits when row 0 runs alone."""
+    """What an eager int8 decode costs per step at 1-16 rows (what padding
+    to ``max_batch`` rows cost the window service, and still costs it under
+    float32/bf16), and that row 0 no longer depends on the row count.
+    Decodes the int8 voice batch's requests (row 0 is request 0, rows past
+    the fourth repeat it) at each row count of DECODE_ROWS: wall and device
+    time per decode step, each the difference of a 72-step and an 8-step
+    decode (the prefill cancels), the device time from a profiled rerun;
+    and row 0's tokens, which must agree at every row count. Then one
+    prefill and two steps at 4 rows under `RowAloneCheck`: no PyTorch
+    operation may change row 0's bits when row 0 runs alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
@@ -1127,13 +1145,388 @@ def padding_phase(v8: dict) -> dict:
     agree = {f"{a}/{b} rows": int((row0[a] == row0[b]).sum())
              for a, b in zip(DECODE_ROWS, DECODE_ROWS[1:])}
     log("voice padding cost (int8 decode, per step): " + json.dumps(cost))
-    log(f"voice padding: row 0's {s2} tokens equal between row counts: " + json.dumps(agree))
+    gemv_rows = [f"{a}/{b} rows" for a, b in zip(DECODE_ROWS, DECODE_ROWS[1:]) if b <= 8]
+    check("voice int8 decode: row 0's tokens at every row count up to 8",
+          all(agree[k] == s2 for k in gemv_rows),
+          f"{s2} tokens equal between row counts: " + json.dumps(agree) + " (past 8 rows the "
+          "projections take the GEMM path, whose rows differ from the GEMV's bits)")
     with RowAloneCheck(4) as mode:
         decode(4, 2)
-    log(f"voice padding: {mode.checked} of {mode.ops} PyTorch operations of a prefill and "
-        f"two steps at 4 rows rerun on row 0 alone; row 0's bits differ in: "
-        + json.dumps(mode.differ))
+    check("voice int8 decode: PyTorch operations row-invariant", not mode.differ,
+          f"{mode.checked} of {mode.ops} PyTorch operations of a prefill and two steps at "
+          f"4 rows rerun on row 0 alone; row 0's bits differ in: " + json.dumps(mode.differ))
     return {"cost": cost, "row0_tokens_equal": agree, "differ": mode.differ}
+
+
+# -- the continuous engine: row invariance, CUDA graphs, the serve CLI -------------
+
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_STEP = 4, 64, 64  # bins/serve.py: --slots, --chunk, --len_step
+INVARIANT_ROWS = (1, 2, 4, 8)
+ENGINE_GROUPS = [("int8_gemv", ("gemv_kernel", "::Int8,")),
+                 ("int4_gemv", ("gemv_kernel", "::Int4,")),
+                 ("bf16_gemv", ("gemv_kernel", "::Bf16,")), ("rms_norm", ("rms_norm_kernel",))]
+
+
+def voice_requests(v: dict) -> list:
+    """(content, AR seed, style prompt) of the voice batch's four requests,
+    from its recorded AR inputs; the AR seed is the window service's
+    (``2 * seed + 1``)."""
+    inp, ln, pout, plen = v["ar_inputs"]
+    return [(inp[i, :int(ln[i])], 2 * sd + 1, pout[i, :int(plen[i])])
+            for i, sd in enumerate(v["seeds"])]
+
+
+def row_invariance_phase(v: dict, dtype: str, max_new: int) -> None:
+    """On the voice batch's recorded AR inputs (its four requests, repeated
+    to 8 rows) and at its cache length, every row's logits after the
+    prefill and after each of three decode steps are bit-equal at 1, 2, 4
+    and 8 rows: the prefill runs at each row count, the steps on each
+    count's own caches, with the 8-row run's sampled tokens."""
+    from amphion_tpu_torch.ops.ragged import right_pack_valid
+    from amphion_tpu_torch.ops.sampling import sample_logits
+
+    ar = v["pipe"].ar
+    idx = [i % 4 for i in range(max(INVARIANT_ROWS))]
+    inp, ln, pout, plen = (t[idx].to(DEV) for t in v["ar_inputs"])
+    l0 = inp.shape[1] + 3 + pout.shape[1]
+    total = l0 + max_new
+    with torch.inference_mode():
+        runs = {}
+        for b in INVARIANT_ROWS:
+            kv = right_pack_valid([ln[:b] + 2, plen[:b] + 1], l0, total)
+            caches = ar.decoder.init_cache(b, total, torch.bfloat16, DEV)
+            logits, caches, _ = ar.prefill_ragged(inp[:b], ln[:b], caches, kv, pout[:b],
+                                                  plen[:b])
+            runs[b] = (logits, caches, kv)
+        logits, caches, kv = runs[len(idx)]
+        gens = [torch.Generator(DEV).manual_seed(i) for i in range(len(idx))]
+        toks, full = [], [logits]
+        for i in range(3):
+            toks.append(sample_logits(full[-1].float(), gens, 1.0, 40))
+            full.append(ar.step(toks[-1], caches, l0 + i, kv)[0])
+        same = {}
+        for b in INVARIANT_ROWS[:-1]:
+            logits, caches, kv = runs[b]
+            ok = [torch.equal(logits, full[0][:b])]
+            for i in range(3):
+                logits, _ = ar.step(toks[i][:b], caches, l0 + i, kv)
+                ok.append(torch.equal(logits, full[1 + i][:b]))
+            same[b] = ok
+        torch.cuda.synchronize()
+    check(f"voice {dtype} decode: every row's logits bit-equal at {INVARIANT_ROWS} rows",
+          all(all(ok) for ok in same.values()),
+          "prefill and three steps on the voice batch's recorded inputs, rows of each count "
+          f"against the same rows of the 8-row run: {json.dumps(same)}")
+
+
+def engine_phase(v: dict, dtype: str, max_new: int, kernels: dict) -> dict:
+    """The continuous engine at full width on the voice pipeline (slots 4,
+    chunk 64, the CLI's buckets, top-k 40): the four voice requests admitted
+    staggered, one at each of the first four chunk boundaries, through the
+    graph engine (a service's own, its driver stopped) and an eager engine;
+    each request's tokens equal its solo one-shot decode
+    (`VevoContinuousService.solo_tokens`) and the graph engine's equal the
+    eager one's. Reports the graphs (nodes per rung against the eager
+    step's launches, capture time), steps/s and latency of both, and a
+    profiled chunk at 4 rows (device-busy share, time by group)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amphion_tpu_torch.serving.continuous import ContinuousARBatcher
+    from amphion_tpu_torch.serving.continuous_service import VevoContinuousService
+
+    pipe = v["pipe"]
+    reqs = voice_requests(v)
+    t0 = time.perf_counter()
+    svc = VevoContinuousService(pipe, slots=ENGINE_SLOTS, chunk=ENGINE_CHUNK,
+                                len_step=ENGINE_STEP, max_new=max_new, temperature=1.0,
+                                top_k=40)
+    build_s = time.perf_counter() - t0
+    svc.driver.shutdown()  # the engine is driven chunk by chunk from here
+    eng = svc.driver.engine
+    kw = dict(slots=ENGINE_SLOTS, chunk=ENGINE_CHUNK, buckets=eng.buckets,
+              out_buckets=eng.out_buckets, max_new=max_new, temperature=1.0, top_k=40,
+              compute_dtype=dtype)
+    eager = ContinuousARBatcher(pipe.ar, graphs=False, **kw)
+    # the graphs: node types of a fresh capture of each rung's step on the
+    # idle eager engine, and the eager step's launches, counted by the profiler
+    nodes = {}
+    with torch.inference_mode():  # the engine's buffers are inference tensors
+        for r in eager.rungs:
+            types = graph_node_types(lambda: eager._step(r), eager.gens[:r])
+            nodes[r] = {"nodes": len(types), "kernel_nodes": types.count(0),
+                        "port_kernels": eng.step_launches(r)}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eager._step(ENGINE_SLOTS)
+            torch.cuda.synchronize()
+        eager.step_idx.zero_()
+    eager_launches = device_us_by_name(prof)[1]
+    facts = {"capacity": eng.capacity, "rungs": nodes, "capture_s": eng.capture_s,
+             "service_build_s": build_s, "eager_step_device_records": eager_launches}
+    log(f"engine {dtype} graphs (nodes per rung's step; the eager step's device records "
+        "by the profiler): " + json.dumps(facts))
+
+    def staggered(e):
+        rids, t0 = [], time.perf_counter()
+        for content, seed, po in reqs:
+            rids.append(e.submit(content, seed, prompt_output=po))
+            e.step_chunk()
+        done = e.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return [done[r] for r in rids], [e.latency_s[r] for r in rids], wall
+
+    for k in kernels.values():
+        k.reset()
+    chunks0 = eng.chunks
+    toks_g, lat_g, wall_g = staggered(eng)
+    launches = {name: k.launches for name, k in kernels.items()}
+    steps_g = (eng.chunks - chunks0) * ENGINE_CHUNK
+    chunks0 = eager.chunks
+    toks_e, lat_e, wall_e = staggered(eager)
+    steps_e = (eager.chunks - chunks0) * ENGINE_CHUNK
+    t0 = time.perf_counter()
+    solo = [svc.solo_tokens(content, seed, po) for content, seed, po in reqs]
+    solo_s = (time.perf_counter() - t0) / len(reqs)
+    same_e = [torch.equal(a, b) for a, b in zip(toks_g, toks_e)]
+    same_s = [torch.equal(a, b) for a, b in zip(toks_g, solo)]
+    lens = [len(t) for t in toks_g]
+    check(f"engine {dtype}: graph engine tokens equal the eager engine's", all(same_e),
+          f"{same_e}, lengths {lens} of {max_new}")
+    check(f"engine {dtype}: each staggered request's tokens equal its solo decode", all(same_s),
+          f"{same_s}, solo lengths {[len(t) for t in solo]}")
+    gemv = "int8_matmul" if dtype == "int8" else "int4_matmul"
+    check(f"engine {dtype}: the graphs' launches counted at their replays",
+          launches["bf16_gemv"] >= steps_g and launches["rms_norm"] >= 49 * steps_g
+          and launches[gemv] >= 96 * steps_g and launches["decode_attn_int8"] == 0,
+          f"{json.dumps(launches)} over {steps_g} steps (at least 1, 49 and 96 a step; "
+          "decode attention off the engine's path)")
+
+    def profiled_chunk(e):
+        """One chunk at 4 rows under the profiler (device activity)."""
+        for content, seed, po in reqs:
+            e.submit(content, seed, max_new=3 * ENGINE_CHUNK, prompt_output=po)
+        e.step_chunk()  # admissions and a first chunk
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            e.step_chunk()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = e.last_rung
+        e.run()
+        by_name, n_rec = device_us_by_name(prof)
+        groups = dict.fromkeys([g for g, _ in ENGINE_GROUPS] + ["gemm", "other"], 0.0)
+        for name, us in by_name.items():
+            grp = next((g for g, pats in ENGINE_GROUPS if all(p in name for p in pats)), None)
+            if grp is None:
+                grp = "gemm" if any(t in name for t in LIBRARY_GEMM) else "other"
+            groups[grp] += us / 1e3
+        busy = sum(groups.values()) / 1e3
+        return {"rows": rows, "wall_s": wall, "device_busy_s": busy,
+                "device_busy_share": busy / wall, "device_records": n_rec,
+                "ms_per_step": wall / ENGINE_CHUNK * 1e3, "device_ms_by_group": groups}
+
+    perf = {"decode_steps": steps_g, "graph_wall_s": wall_g, "graph_steps_per_s": steps_g / wall_g,
+            "eager_wall_s": wall_e, "eager_steps_per_s": steps_e / wall_e,
+            "tokens_per_s_graph": sum(lens) / wall_g, "latency_s_graph": lat_g,
+            "latency_s_eager": lat_e, "solo_decode_s": solo_s,
+            "profiled_chunk_graph": profiled_chunk(eng),
+            "profiled_chunk_eager": profiled_chunk(eager),
+            "window_batch_steps_per_s": v["perf"]["decode_steps_per_s"],
+            "window_batch_wall_s": v["perf"]["batch_wall_s"]}
+    log(f"engine {dtype} perf ({nvidia_smi()}): " + json.dumps(perf))
+    return {"svc": svc, "perf": perf, "facts": facts, "launches": launches}
+
+
+def bf16_engine_phase(cfg, seed: int, v8: dict, max_new: int) -> dict:
+    """The same weights decoding in bf16 (cuBLAS products, no row-invariance
+    promise): request 0 alone through the graph engine, then with the three
+    others; reports how many of its tokens agree (no gate)."""
+    from amphion_tpu_torch.pipelines.vevo_pipeline import build_vevo_voice
+    from amphion_tpu_torch.serving.continuous import ContinuousARBatcher
+    from amphion_tpu_torch.serving.continuous_service import _ladder_tuple
+
+    ar = build_vevo_voice(cfg, seed, DEV, compute_dtype="bfloat16").ar
+    eng = ContinuousARBatcher(ar, slots=ENGINE_SLOTS, chunk=ENGINE_CHUNK,
+                              buckets=_ladder_tuple(ENGINE_STEP, 1024),
+                              out_buckets=_ladder_tuple(ENGINE_STEP, 512), max_new=max_new,
+                              temperature=1.0, top_k=40, compute_dtype="bfloat16")
+    reqs = voice_requests(v8)
+    alone = eng.submit(*reqs[0][:2], prompt_output=reqs[0][2])
+    alone = eng.run()[alone]
+    rids = [eng.submit(c, s, prompt_output=po) for c, s, po in reqs]
+    together = eng.run()[rids[0]]
+    n = min(len(alone), len(together))
+    agree = int((alone[:n] == together[:n]).sum())
+    out = {"tokens_equal": agree, "of": max_new, "lengths": [len(alone), len(together)]}
+    log("engine bfloat16 (cuBLAS products): request 0 alone against 4 rows: " + json.dumps(out))
+    del eng, ar
+    return out
+
+
+def http_phase(cfg, seed: int, dtype: str, max_new: int, kernels: dict, audio: list) -> dict:
+    """`bins/serve.py` as a user starts it: full-width FM and AR trainer
+    checkpoints (the voice pipeline's weights from ``seed``) under a
+    temporary log_dir, `_build_vevo_service` (continuous batcher, voice,
+    ``dtype``), `prewarm`, and `serve` on 127.0.0.1 at a port the OS
+    picks, driven by `serving/loadgen.py` with six voice requests on a
+    Poisson trace. Every response must be a 24 kHz PCM16 wav of 120 samples
+    per generated token; `/api/stats` the continuous engine's."""
+    import base64
+    import io
+    import tempfile
+    import types
+    import urllib.request
+    import wave
+
+    from amphion_tpu_torch.bins import serve as serve_cli
+    from amphion_tpu_torch.pipelines.vevo_pipeline import vevo_modules
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+    from amphion_tpu_torch.serving import loadgen
+
+    with tempfile.TemporaryDirectory(prefix="serve_") as root:
+        path = os.path.join(root, "vevo.json")
+        with open(path, "w") as f:
+            json.dump({"base_config": os.path.abspath("config/vevo.json"),
+                       "log_dir": os.path.join(root, "ckpts"), "model": cfg["model"]}, f)
+        t0 = time.perf_counter()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            mods = vevo_modules(cfg, voice=True)
+        for name in ("fm", "ar"):
+            state = types.SimpleNamespace(
+                state_dict=lambda m=mods[name]: {"model": m.state_dict()})
+            ckpt_dir = os.path.join(root, "ckpts", name, "checkpoint")
+            CheckpointManager(ckpt_dir).save(state, 0, 0, 0.0)
+        del mods
+        ckpt_s = time.perf_counter() - t0
+        args = serve_cli.parse_args([
+            "--backend", "vevo", "--vevo_mode", "voice", "--config", path, "--fm_exp", "fm",
+            "--ar_exp", "ar", "--compute_dtype", dtype, "--max_new", str(max_new), "--port", "0",
+            "--device", DEV])
+        t0 = time.perf_counter()
+        backend = serve_cli._build_vevo_service(args)
+        build_s = time.perf_counter() - t0
+    svc = backend.stats.__self__
+    ntok = {}
+    inner = svc.driver.submit_wait
+
+    def recording(content, seed, **kw):  # each request's token count, by its AR seed
+        toks = inner(content, seed, **kw)
+        ntok[(seed - 1) // 2] = len(toks)
+        return toks
+
+    svc.driver.submit_wait = recording
+    try:
+        t0 = time.perf_counter()
+        backend.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        httpd = serve_cli.serve(backend.synth, backend.stats, "vevo", port=0,
+                                input_sr=backend.sample_rate)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        pairs = audio + [(synth_audio(np.random.default_rng(seed + 40 + i), 2.5),
+                          synth_audio(np.random.default_rng(seed + 50 + i), 3.0))
+                         for i in range(2)]
+
+        def wav64(x):
+            return base64.b64encode(serve_cli._encode_wav_bytes(x, SR)).decode()
+
+        def make_request(i):
+            ref, src = pairs[i]
+            return {"prompt_wav": wav64(ref), "src_wav": wav64(src), "seed": 900 + i}
+
+        replies = {}
+        submit = loadgen.http_synthesize_submit(url, timeout_s=600)
+
+        def keep(payload):
+            replies[payload["seed"]] = submit(payload)
+
+        ntok.clear()
+        with urllib.request.urlopen(url + "/api/stats", timeout=60) as r:
+            before = json.loads(r.read())
+        for k in kernels.values():
+            k.reset()
+        res = loadgen.run_trace(keep, make_request, loadgen.poisson_arrivals(1.0, 6, seed=seed),
+                                drain_timeout_s=600)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        with urllib.request.urlopen(url + "/api/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    finally:
+        backend.shutdown()
+    lens = {}
+    for sd, data in sorted(replies.items()):
+        with wave.open(io.BytesIO(data)) as w:
+            lens[sd] = (w.getframerate(), w.getnchannels(), w.getsampwidth(), w.getnframes())
+    want = {sd: (SR, 1, 2, max(ntok.get(sd, -1), 1) * HOP) for sd in range(900, 906)}
+    out = {"checkpoints_s": ckpt_s, "build_s": build_s, "prewarm_s": prewarm_s,
+           "load": res.row(), "latency_ms": res.lat_ms, "stats": stats,
+           "tokens": ntok, "launches": launches}
+    log(f"http {dtype} (bins/serve.py, continuous, {nvidia_smi()}): " + json.dumps(out))
+    check(f"http {dtype}: six voice requests answered with well-formed wavs",
+          res.n_ok == 6 and res.n_err == 0 and lens == want and len(ntok) == 6,
+          f"{res.n_ok} ok, {res.n_err} failed; (rate, channels, width, samples) {lens}, want "
+          f"120 samples per generated token {want}")
+    check(f"http {dtype}: /api/stats is the continuous engine's",
+          stats.get("batcher") == "continuous" and stats["chunks"] > before["chunks"]
+          and stats["admitted"] == before["admitted"] + 6 and stats["solo_served"] == 0,
+          f"batcher {stats.get('batcher')}, chunks {before['chunks']} -> {stats.get('chunks')}, "
+          f"admitted {before['admitted']} -> {stats.get('admitted')}, mean slot occupancy "
+          f"{stats.get('mean_slot_occupancy')}, solo {stats.get('solo_served')} (the engine "
+          "replays graphs, so the solo path declines)")
+    gemv = "int8_matmul" if dtype == "int8" else "int4_matmul"
+    path = ("mel", gemv, "flash_attn_fwd", "rms_norm", "bf16_gemv")
+    check(f"http {dtype}: the path's kernels launched",
+          all(launches[k] > 0 for k in path) and launches["decode_attn_int8"] == 0,
+          json.dumps(launches))
+    return out
+
+
+def engine_kernel_rows(v8: dict, http: dict) -> list:
+    """The kernels this slice added, at the engine's step (4 rows) on the
+    int8 pipeline's own weights: the RMSNorm (the decoder's first input
+    norm's gain) and the lm_head GEMV, each against its plain version, by
+    CUDA-graph replays beside its bound and one PyTorch call computing the
+    same function (`F.rms_norm`, `F.linear`); launches from the HTTP run."""
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear, bf16_linear_ref
+    from amphion_tpu_torch.ops.kernels.rms_norm import rms_norm, rms_norm_ref
+
+    ar = v8["pipe"].ar
+    g = torch.Generator(DEV).manual_seed(12)
+    m = ENGINE_SLOTS
+    x = (torch.randn((m, AR_HIDDEN), generator=g, device=DEV) * 2).bfloat16()
+    gain = ar.decoder.layer_0.input_norm.scale.detach()
+    w = ar.lm_head.weight.detach()
+    rows = []
+    for name, src, fn, ref, lib, ops, nbytes, jax_line in (
+            ("rms_norm", "rms_norm.cu", lambda: rms_norm(x, gain, 1e-6),
+             lambda: rms_norm_ref(x, gain, 1e-6),
+             lambda: F.rms_norm(x, (AR_HIDDEN,), gain, 1e-6), 4.0 * m * AR_HIDDEN,
+             2 * (2 * m * AR_HIDDEN + AR_HIDDEN), "amphion_tpu/modules/llama.py:131"),
+            ("bf16_gemv", "bf16_gemv.cu", lambda: bf16_linear(x, w), lambda: bf16_linear_ref(x, w),
+             lambda: F.linear(x, w), 2.0 * m * w.numel(),
+             2 * (w.numel() + m * AR_HIDDEN + m * w.shape[0]),
+             "amphion_tpu/models/vc/ar_transformer.py:331")):
+        out, want = fn(), ref()
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(f"{name} at the engine's step ({m} rows) against its plain version",
+              err <= 2e-2 * scale and torch.equal(fn(), out),
+              f"max|err| {err:.3g} (tol 2e-2 of {scale:.3g}), relaunch bit-equal")
+        bound, by = _bound(ops, nbytes)
+        ms, plain, lib_ms = graph_ms(fn), graph_ms(ref), graph_ms(lib)
+        log(f"timing {name} ({nvidia_smi()}): ({m}, {AR_HIDDEN}) bf16, kernel {ms} ms, plain "
+            f"{plain} ms, library {lib_ms} ms, bound {bound} ms ({by})")
+        row = _row(name, src, 0, http["launches"][name], err, ms, plain, bound, by, lib_ms,
+                   ms_is=f"one call at the engine's {m}-row decode step, CUDA-graph replays",
+                   launches_are="the HTTP voice run's (graph replays counted)")
+        row["replaces"] = f"{jax_line} (computed by XLA there: no Pallas kernel)"
+        rows.append(row)
+    return rows
 
 
 def _row(name, src, line, launches, err, ms, plain, bound, by, lib, **extra):
@@ -2356,16 +2749,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(1100)  # where a run that outlives its limit stands
     t_start = time.perf_counter()
     from amphion_tpu_torch.ops import mel as mel_mod
     from amphion_tpu_torch.ops.kernels import _build
     from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import BF16_GEMV
     from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
     from amphion_tpu_torch.ops.kernels.decode_attention import DECODE_ATTN
     from amphion_tpu_torch.ops.kernels.flash_attention import FLASH, FLASH_BWD
     from amphion_tpu_torch.ops.kernels.int4_matmul import INT4_MM
     from amphion_tpu_torch.ops.kernels.int8_matmul import INT8_MM
     from amphion_tpu_torch.ops.kernels.mel import MEL
+    from amphion_tpu_torch.ops.kernels.rms_norm import RMS_NORM
     from amphion_tpu_torch.ops.kernels.snake import SNAKE
     from amphion_tpu_torch.utils.config import load_config
 
@@ -2378,7 +2774,8 @@ def main() -> int:
         f"{torch.version.cuda}, nvcc {nvcc!r}, card {card!r}")
     kernels = {"mel": MEL, "flash_attn_fwd": FLASH, "flash_attn_bwd": FLASH_BWD,
                "int8_matmul": INT8_MM, "int4_matmul": INT4_MM,
-               "decode_attn_int8": DECODE_ATTN, "snake": SNAKE, "aa_snake": AA_SNAKE}
+               "decode_attn_int8": DECODE_ATTN, "snake": SNAKE, "aa_snake": AA_SNAKE,
+               "rms_norm": RMS_NORM, "bf16_gemv": BF16_GEMV}
     t0 = time.perf_counter()
     _build.build_all(list(kernels.values()))
     log(f"build: {', '.join(k.source.name for k in kernels.values())} in "
@@ -2401,7 +2798,13 @@ def main() -> int:
                      solo_check=False)
     fused = fused_phase(v8, v4, args.seed, args.max_new, kernels)
     padding_phase(v8)
+    for v, dtype in ((v8, "int8"), (v4, "int4")):
+        row_invariance_phase(v, dtype, args.max_new)
+        engine_phase(v, dtype, args.max_new, kernels)["svc"].shutdown()
+    bf16_engine_phase(cfg, args.seed, v8, args.max_new)
+    http = http_phase(cfg, args.seed, "int8", args.max_new, kernels, v8["audio"])
     rows += quant_timing_phase(v8, v4, fused)
+    rows += engine_kernel_rows(v8, http)
     del v8, v4, fused
     gc.collect()
     torch.cuda.empty_cache()

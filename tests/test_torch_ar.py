@@ -44,6 +44,10 @@ from amphion_tpu_torch.ops import ragged as tragged
 from amphion_tpu_torch.ops.sampling import sample_logits, top_k_filter, top_p_filter
 from amphion_tpu_torch.utils.convert import from_flax
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 AR = dict(input_vocab=8, output_vocab=48, hidden=64, intermediate=128, num_layers=2,
           num_heads=4, max_position=128)

@@ -26,6 +26,10 @@ import pytest
 import torch
 from torch import nn
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 from amphion_tpu.models.vocoders.bigvgan import BigVGANConfig as JBigVGANConfig
 from amphion_tpu.models.vocoders.bigvgan import BigVGANGenerator as JBigVGAN
 from amphion_tpu.ops.mel import MelConfig as JMelConfig

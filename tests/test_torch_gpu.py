@@ -743,3 +743,120 @@ def test_snake_wrappers_raise_under_grad(cuda):
         snake(x, a)
     with pytest.raises(RuntimeError, match="no backward"):
         aa_snakebeta(x, a, a)
+
+
+# -- the row-invariant quantized decode: RMSNorm, the bf16 lm_head GEMV, the engine -----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(1, 1280), (4, 1280), (8, 1280), (2316, 1280), (3, 1000),
+                                    (5, 33)])
+def test_rms_norm_kernel_matches_plain(cuda, rows, d, dtype):
+    """The kernel against the plain version (float32 within 1e-5 of
+    max|ref|; bf16 within one bf16 step), relaunched bit for bit, and each
+    of the first rows alone equal to its row in the full call."""
+    from amphion_tpu_torch.ops.kernels.rms_norm import RMS_NORM, rms_norm, rms_norm_ref
+
+    g = torch.Generator(cuda).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=g, device=cuda) * 3).to(dtype)
+    w = (1 + 0.2 * torch.randn((d,), generator=g, device=cuda)).to(dtype)
+    n = RMS_NORM.launches
+    out = rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert RMS_NORM.launches == n + 1 and out.dtype == dtype and out.shape == x.shape
+    ref = rms_norm_ref(x, w, 1e-6)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    else:
+        _within_one_bf16_step(out, ref)
+    assert torch.equal(rms_norm(x, w, 1e-6), out)
+    for r in range(min(rows, 4)):
+        assert torch.equal(rms_norm(x[r:r + 1], w, 1e-6)[0], out[r]), r
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("k,n", [(1280, 8244), (64, 100), (4096, 1280)])
+def test_bf16_gemv_kernel_matches_plain(cuda, m, k, n):
+    """The lm_head GEMV against the plain version (bf16 bounds), relaunched
+    bit for bit, and row r alone equal to row r of the full call (M > 8
+    runs in launches of 8 rows)."""
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import BF16_GEMV, bf16_linear, bf16_linear_ref
+
+    g = torch.Generator(cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).bfloat16()
+    launches = BF16_GEMV.launches
+    out = bf16_linear(x, w)
+    torch.cuda.synchronize()
+    assert BF16_GEMV.launches == launches + 1 and out.shape == (m, n)
+    _close(out, bf16_linear_ref(x, w), torch.bfloat16)
+    assert torch.equal(bf16_linear(x, w), out)
+    for r in range(m):
+        assert torch.equal(bf16_linear(x[r:r + 1], w)[0], out[r]), r
+
+
+def test_row_invariant_wrappers_raise_on_what_they_do_not_take(cuda):
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear
+    from amphion_tpu_torch.ops.kernels.rms_norm import rms_norm
+
+    x = torch.randn((2, 48), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="K % 32"):
+        bf16_linear(x, torch.randn((8, 48), device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="bf16"):
+        bf16_linear(x.float(), torch.randn((8, 48), device=cuda))
+    with pytest.raises(ValueError, match="gain"):
+        rms_norm(x, torch.ones(48, device=cuda), 1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rms_norm(torch.randn((2, 48), device=cuda, requires_grad=True),
+                 torch.ones(48, device=cuda), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_continuous_engine_graphs_match_eager_and_solo(cuda, dtype):
+    """A small quantized AR on the card: the engine replaying CUDA graphs
+    gives each of four staggered requests the tokens of the eager engine and
+    of its one-shot ragged decode at the engine's capacity; the replays
+    count their launches (one GEMV per projection, one RMSNorm per norm, one
+    lm_head GEMV per step and row set)."""
+    from amphion_tpu_torch.models.vc.ar_transformer import (
+        ARTransformer, ARTransformerConfig, ar_transformer_generate_ragged, prepare_for_decode)
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import BF16_GEMV
+    from amphion_tpu_torch.ops.kernels.rms_norm import RMS_NORM
+    from amphion_tpu_torch.serving.continuous import ContinuousARBatcher
+
+    torch.manual_seed(0)
+    with torch.device(cuda):
+        model = prepare_for_decode(ARTransformer(ARTransformerConfig(
+            input_vocab=16, output_vocab=256, hidden=128, intermediate=256, num_layers=2,
+            num_heads=2, max_position=512)).eval(), dtype)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [(torch.randint(0, 16, (int(5 + 7 * i),), generator=rng), 70 + i,
+             torch.randint(0, 256, (int(20 + 9 * i),), generator=rng)) for i in range(4)]
+    kw = dict(slots=4, chunk=8, buckets=(32, 64), out_buckets=(32, 64), max_new=40,
+              temperature=1.0, top_k=20, compute_dtype=dtype)
+    out = {}
+    for graphs in (True, False):
+        eng = ContinuousARBatcher(model, graphs=graphs, **kw)
+        rids = []
+        for content, seed, po in reqs:
+            rids.append(eng.submit(content, seed, prompt_output=po))
+            eng.step_chunk()
+        n8, nrms = BF16_GEMV.launches, RMS_NORM.launches
+        done = eng.run()
+        out[graphs] = [done[r] for r in rids]
+        if graphs:
+            assert eng.step_launches(1) == {"rms_norm": 5, "bf16_gemv": 1,
+                                            f"{dtype}_matmul": 8}
+            # the replays after the fourth admission: at least a chunk of steps
+            assert BF16_GEMV.launches - n8 >= eng.chunk
+            assert RMS_NORM.launches - nrms >= 5 * eng.chunk
+    for i, (content, seed, po) in enumerate(reqs):
+        toks, n = ar_transformer_generate_ragged(
+            model, torch.nn.functional.pad(content, (0, 32 - len(content)))[None].to(cuda),
+            torch.tensor([len(content)], device=cuda), [torch.Generator(cuda).manual_seed(seed)],
+            max_new=40, top_k=20, compute_dtype=dtype, capacity=eng.capacity,
+            prompt_output_tokens=torch.nn.functional.pad(po, (0, eng._bucket(
+                len(po), eng.out_buckets) - len(po)))[None].to(cuda),
+            prompt_output_len=torch.tensor([len(po)], device=cuda))
+        solo = toks[0, :int(n[0])].cpu()
+        assert torch.equal(out[True][i], out[False][i]), i
+        assert torch.equal(out[True][i], solo), i

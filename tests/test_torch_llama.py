@@ -29,6 +29,10 @@ from amphion_tpu_torch.models.vocoders.vocos import VocosConfig, VocosGenerator
 from amphion_tpu_torch.modules.llama import LlamaConfig, LlamaEncoder, rotary_tables
 from amphion_tpu_torch.utils.convert import from_flax
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 
 

@@ -31,6 +31,10 @@ from amphion_tpu_torch.ops import stft as tstft
 from amphion_tpu_torch.ops.kernels.flash_attention import attention_ref, flash_attention
 from amphion_tpu_torch.utils.config import load_config
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 T = torch.from_numpy
 
@@ -230,7 +234,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((ROOT / "amphion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 20 and (ROOT / "tools" / "kernel_ab.py") in files
+    port = ROOT / "amphion_tpu_torch"
+    assert {port / "serving" / "continuous.py", port / "serving" / "continuous_service.py",
+            port / "serving" / "loadgen.py", port / "bins" / "serve.py",
+            port / "bins" / "vc" / "inference.py"} <= set(files)
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "amphion_tpu"), (f, name)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "amphion_tpu", "bins"), (f, name)

@@ -47,6 +47,10 @@ from amphion_tpu_torch.ops.kernels.int4_matmul import (
 from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, quantize_weight_int8
 from amphion_tpu_torch.utils.convert import from_flax
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 
 

@@ -36,6 +36,10 @@ from amphion_tpu_torch.ops.kernels.aa_snake import (
 )
 from amphion_tpu_torch.ops.kernels.snake import SnakeFn, snake, snake_bwd, snake_bwd_ref, snake_ref
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 
 
@@ -77,10 +81,18 @@ def _within_one_bf16_step(out: torch.Tensor, ref: np.ndarray) -> bool:
 # -- kernel 1: Snake ---------------------------------------------------------
 
 def test_snake_ref_matches_pallas():
+    """The plain forward against the Pallas kernel (interpret mode, one
+    jitted call) and both against the formula in float64, so that a
+    failure names the side that moved."""
     x, a, _, _ = _inputs(0, (2, 300, 8))  # T not a multiple of the 256-row tile
-    ref = np.asarray(pk.snake_pallas(jnp.asarray(x), jnp.asarray(a), True))
-    np.testing.assert_allclose(snake_ref(T(x), T(a)).numpy(), ref, rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(snake(T(x), T(a)).numpy(), snake_ref(T(x), T(a)).numpy())
+    x64, a64 = x.astype(np.float64), a.astype(np.float64)
+    exact = x64 + np.sin(a64 * x64) ** 2 / (a64 + 1e-9)
+    ref = np.asarray(jax.jit(lambda x, a: pk.snake_pallas(x, a, True))(x, a))
+    out = snake_ref(T(x), T(a)).numpy()
+    np.testing.assert_allclose(out, exact, rtol=0, atol=1e-6, err_msg="snake_ref")
+    np.testing.assert_allclose(ref, exact, rtol=0, atol=1e-6, err_msg="snake_pallas")
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(snake(T(x), T(a)).numpy(), out)
 
 
 def test_snake_bwd_ref_matches_pallas_vjp():

@@ -51,6 +51,10 @@ from amphion_tpu_torch.runtime.optimizers import (
 )
 from amphion_tpu_torch.utils.convert import _flax_leaf, from_flax, init_like_flax
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 
 

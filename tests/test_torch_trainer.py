@@ -21,6 +21,10 @@ from amphion_tpu_torch.data.metadata import Utterance, load_metadata, save_metad
 from amphion_tpu_torch.runtime.checkpoint import CheckpointManager, parse_ckpt_name
 from amphion_tpu_torch.runtime.loop import LoopConfig, TrainLoop
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 REPO = Path(__file__).resolve().parents[1]
 SR = 24000
 

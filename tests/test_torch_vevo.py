@@ -58,6 +58,10 @@ from amphion_tpu_torch.pipelines.vevo_pipeline import VevoPipeline
 from amphion_tpu_torch.serving.service import VevoService, voice_generators
 from amphion_tpu_torch.utils.convert import from_flax
 
+# the suite runs one worker process per core: torch's own threads would oversubscribe them
+torch.set_num_threads(1)
+
+
 T = torch.from_numpy
 FM = dict(token_vocab=64, n_mel=8, hidden=32, num_layers=2, num_heads=2,
           max_position=512)
