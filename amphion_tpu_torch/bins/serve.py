@@ -18,13 +18,21 @@ API (the schema of the JAX server):
         "seed": int|null}
        → audio/wav bytes (PCM16)
 
-Backends: ``vevo`` (Vevo-Timbre or Vevo-Voice, `--vevo_mode`; the FM and AR
-restored from the port trainer's checkpoints, `bins/vc/inference.py`) and
-``sine`` (a tone through the window batcher, to test the plumbing without
-checkpoints). ``maskgct`` and ``valle`` are not ported yet (ROADMAP A2,
-A3) and raise. The vevo backend defaults to the continuous batcher
-(`serving/continuous_service.py`); ``--batcher window`` restores the window
-batcher. The port adds ``--device`` (default ``cuda``).
+    python -m amphion_tpu_torch.bins.serve --backend maskgct \
+        --config egs/tts/MaskGCT/exp_config.json [--exp_name maskgct] \
+        [--semantic_ckpt DIR] [--codec_ckpt DIR] [--weights_dir DIR]
+
+Backends: ``maskgct`` (the default: zero-shot TTS, `MaskGCTService` over
+`bins/tts/inference.build_maskgct_pipeline`; requests carry ``prompt_wav``,
+``prompt_text``, ``target_text`` and optionally ``target_sec``), ``vevo``
+(Vevo-Timbre or Vevo-Voice, `--vevo_mode`; the FM and AR restored from the
+port trainer's checkpoints, `bins/vc/inference.py`) and ``sine`` (a tone
+through the window batcher, to test the plumbing without checkpoints).
+``valle`` is not ported yet (ROADMAP A3) and raises. The vevo backend
+defaults to the continuous batcher (`serving/continuous_service.py`);
+``--batcher window`` restores the window batcher; maskgct and sine have no
+AR decode and always use the window batcher. The port adds ``--device``
+(default ``cuda``).
 """
 
 from __future__ import annotations
@@ -193,6 +201,35 @@ def _build_vevo_service(args) -> Backend:
     return Backend(synth, svc.stats, sr, prewarm, svc.shutdown)
 
 
+def _build_maskgct_service(args) -> Backend:
+    """Batched MaskGCT zero-shot TTS over `bins/tts/inference.
+    build_maskgct_pipeline`. A request's ``target_sec`` becomes
+    ``target_sec · semantic_rate`` target frames, as in JAX."""
+    from amphion_tpu_torch.bins.tts.inference import build_maskgct_pipeline
+    from amphion_tpu_torch.serving.service import MaskGCTService
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.logging import get_logger
+
+    if args.compute_dtype not in ("float32", "bfloat16"):
+        raise SystemExit(f"--compute_dtype {args.compute_dtype}: MaskGCT serves float32 "
+                         "or bfloat16")
+    cfg = load_config(args.config)
+    pipe = build_maskgct_pipeline(args, cfg, get_logger("serve"), device=args.device,
+                                  compute_dtype=args.compute_dtype)
+    svc = MaskGCTService(pipe, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                         len_step=args.len_step, max_prompt_len=args.max_prompt_len,
+                         max_target_len=args.max_target_len,
+                         max_phone_len=args.max_phone_len)
+
+    def synth(prompt_audio, prompt_text, target_text, target_sec, seed, src_audio=None):
+        target_len = None if target_sec is None else int(target_sec * pipe.semantic_rate)
+        wav = svc.synthesize(prompt_audio, prompt_text, target_text, target_len=target_len,
+                             seed=seed)
+        return wav, pipe.sample_rate
+
+    return Backend(synth, svc.stats, pipe.sample_rate, shutdown=svc.shutdown)
+
+
 def _not_ported(name: str, item: str):
     def build(args):
         raise NotImplementedError(f"the {name} backend is not ported yet (ROADMAP {item})")
@@ -262,7 +299,7 @@ def serve(synth_fn, stats_fn, backend_name="custom", port=7860, host="127.0.0.1"
 
 
 BUILDERS = {"sine": _build_sine_service, "vevo": _build_vevo_service,
-            "maskgct": _not_ported("maskgct", "A2"), "valle": _not_ported("valle", "A3")}
+            "maskgct": _build_maskgct_service, "valle": _not_ported("valle", "A3")}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -270,7 +307,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default="maskgct", choices=sorted(BUILDERS))
     ap.add_argument("--port", type=int, default=7860)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--config", help="experiment config (vevo backend)")
+    ap.add_argument("--config", help="experiment config (maskgct, vevo)")
     ap.add_argument("--exp_name", default="maskgct")
     ap.add_argument("--semantic_ckpt", default=None)
     ap.add_argument("--codec_ckpt", default=None)
@@ -278,7 +315,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batcher", default="continuous", choices=["continuous", "window"],
                     help="AR-backend dispatcher (vevo): 'continuous' (default) admits "
                          "requests into a live per-slot decode at chunk boundaries; "
-                         "'window' is the static micro-batcher; sine always uses it")
+                         "'window' is the static micro-batcher; maskgct and sine always "
+                         "use it")
     ap.add_argument("--slots", type=int, default=4, help="continuous engine decode slots")
     ap.add_argument("--prewarm", action="store_true",
                     help="walk the continuous engine's buckets and rungs and the FM tail "
@@ -298,8 +336,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fm_solver", default="euler", choices=["euler", "midpoint"])
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=["float32", "bfloat16", "int8", "int4"],
-                    help="AR and FM dtype (vevo); int8/int4 decode rows independently of "
-                         "their batch")
+                    help="AR and FM dtype (vevo; int8/int4 decode rows independently of "
+                         "their batch), T2S and S2A dtype (maskgct: float32 or bfloat16)")
     ap.add_argument("--ar_exp", default="", help="vevo AR trainer exp_name")
     ap.add_argument("--fm_exp", default="", help="vevo FM trainer exp_name")
     ap.add_argument("--content_ckpt", default="")
@@ -307,8 +345,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vocoder_ckpt", default="")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.batcher == "continuous" and args.backend == "sine":
-        print("NOTE: backend 'sine' has no AR decode stage; using the window batcher")
+    if args.batcher == "continuous" and args.backend in ("maskgct", "sine"):
+        print(f"NOTE: backend '{args.backend}' has no AR decode stage; falling back to the "
+              "window batcher (continuous batching applies to the AR backends)")
         args.batcher = "window"
     return args
 

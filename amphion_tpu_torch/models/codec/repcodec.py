@@ -1,6 +1,10 @@
-"""RepCodec tokenizer, ``"conv"`` style, encode path only (port of
+"""RepCodec tokenizer, ``"conv"`` style (port of
 `amphion_tpu/models/codec/repcodec.py`): conv-residual encoder → factorized
-VQ nearest-code lookup. Features are (B, T, C) as in JAX.
+VQ nearest-code lookup, and ``decode_tokens`` (tokens → the quantizer's
+decoded latent, the MaskGCT S2A's conditioning on the mel-proxy path). The
+conv decoder (``reconstruct_tokens``) is not ported. Features are (B, T, C)
+as in JAX. ``with_decode`` gives the factorized quantizer its ``out_proj``,
+which ``decode_tokens`` needs; the Vevo tokenizers only encode and have none.
 
 Numerics kept from Flax: LayerNorm eps 1e-6, ``"SAME"`` convolution padding,
 and the tanh approximation of GELU (the ``jax.nn.gelu`` default).
@@ -46,7 +50,7 @@ class ConvBlock(nn.Module):
 
 
 class RepCodec(nn.Module):
-    def __init__(self, cfg: RepCodecConfig):
+    def __init__(self, cfg: RepCodecConfig, with_decode: bool = False):
         super().__init__()
         self.cfg = cfg
         self.in_proj = nn.Linear(cfg.feature_dim, cfg.hidden)
@@ -54,7 +58,7 @@ class RepCodec(nn.Module):
             self.add_module(f"enc_{i}", ConvBlock(cfg.hidden))
         if cfg.use_fvq:
             self.quantizer = FactorizedVectorQuantize(
-                cfg.codebook_size, cfg.codebook_dim, cfg.hidden)
+                cfg.codebook_size, cfg.codebook_dim, cfg.hidden, with_out_proj=with_decode)
         else:
             self.quantizer = VectorQuantize(cfg.codebook_size, cfg.hidden)
 
@@ -65,3 +69,8 @@ class RepCodec(nn.Module):
         for i in range(self.cfg.num_blocks):
             h = getattr(self, f"enc_{i}")(h)
         return self.quantizer.encode(h)
+
+    @torch.inference_mode()
+    def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, T) → quantized latent (B, T, hidden)."""
+        return self.quantizer.decode(tokens)

@@ -22,6 +22,10 @@ given. A decode step takes one shared position (an int) or one per row (a
 gives each lane its own ``cache_index``); with a tensor nothing reads a
 value on the host, so the step can be captured in a CUDA graph.
 
+`DiffLlamaEncoder` and `DiffLlamaPrefixEncoder` are the MaskGCT S2A and
+T2S backbones over the adaptive `LlamaEncoder` (kernel 6 with the key mask
+in every layer).
+
 Training: with ``LlamaConfig.remat`` each block runs under
 ``torch.utils.checkpoint`` (the JAX ``nn.remat``), and full-sequence
 attention is differentiable through the flash kernels' autograd Function
@@ -643,7 +647,9 @@ def sinusoidal_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class MLP2(nn.Module):
-    """Linear(4h) → SiLU → Linear(out or h)."""
+    """Linear(4h) → SiLU → Linear(out or h), in the wider of the input's and
+    the weights' dtypes, as Flax ``Dense`` promotes (a float32 step
+    embedding through bf16 weights stays float32)."""
 
     def __init__(self, in_dim: int, hidden: int, out: int | None = None):
         super().__init__()
@@ -651,4 +657,49 @@ class MLP2(nn.Module):
         self.Dense_1 = nn.Linear(4 * hidden, out or hidden)
 
     def forward(self, x):
-        return self.Dense_1(F.silu(self.Dense_0(x)))
+        dt = torch.promote_types(x.dtype, self.Dense_0.weight.dtype)
+
+        def dense(layer, h):
+            return F.linear(h.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+        return dense(self.Dense_1, F.silu(dense(self.Dense_0, x)))
+
+
+class DiffLlamaEncoder(nn.Module):
+    """DiffLlama (the MaskGCT S2A backbone): per-token conditioning added to
+    the input through ``cond_mlp``, the diffusion step through the adaptive
+    norms."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.cond_mlp = MLP2(cfg.hidden_size, cfg.hidden_size)
+        self.diff_step_mlp = MLP2(cfg.hidden_size, cfg.hidden_size)
+        self.encoder = LlamaEncoder(cfg)
+
+    def step_cond(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B,) diffusion steps → the norms' (B, D) conditioning in ``dtype``."""
+        return self.diff_step_mlp(
+            sinusoidal_step_embedding(t, self.cfg.hidden_size)).to(dtype)
+
+    def forward(self, x, t, cond, mask=None):
+        """x (B, T, D); t (B,) diffusion step; cond (B, T, D) per token;
+        mask (B, T), nonzero = a real position."""
+        x = x + self.cond_mlp(cond)
+        return self.encoder(x, cond=self.step_cond(t, x.dtype), mask=mask)
+
+
+class DiffLlamaPrefixEncoder(DiffLlamaEncoder):
+    """DiffLlamaPrefix (the MaskGCT T2S backbone): the conditioning (phone
+    embeddings) goes through ``cond_mlp`` and is prepended as a prefix; the
+    diffusion step goes through the adaptive norms; the prefix positions
+    are cut from the output."""
+
+    def forward(self, x, t, x_mask, phone_emb=None, phone_mask=None):
+        d = self.step_cond(t, x.dtype)
+        if phone_emb is not None:
+            h = torch.cat([self.cond_mlp(phone_emb), x], dim=1)
+            m = torch.cat([phone_mask.to(x_mask.dtype), x_mask], dim=1)
+            lp = phone_emb.shape[1]
+        else:
+            h, m, lp = x, x_mask, 0
+        return self.encoder(h, cond=d, mask=m)[:, lp:]

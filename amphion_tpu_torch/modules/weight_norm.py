@@ -9,11 +9,17 @@ the rule is written out here. Both modules take and return the JAX layout
 (``WeightNorm_k["Conv_j/kernel/scale"]``); `utils/convert.from_flax` finds
 it there.
 
-Flax's ``ConvTranspose`` (``transpose_kernel=False``) with BigVGAN's padding
-``(k−1−p, k−1−(k−r−p))``, ``p = (k−r)//2``, is torch's ``conv_transpose1d``
-with the kernel reversed along k (the bridge reverses it once), padding p
-and the output cut to T·r samples (torch gives one more where k − r is
-odd).
+Flax's ``ConvTranspose`` (``transpose_kernel=False``) with padding
+``(pl, pr)`` is torch's ``conv_transpose1d`` with the kernel reversed along
+k (the bridge reverses it once), padding ``k−1−pl``, ``pr − pl`` more
+samples on the right where ``pr > pl`` (``output_padding``), and the output
+cut to Flax's length where ``pr < pl``. BigVGAN's padding is
+``(k−1−p, k−1−(k−r−p))``, ``p = (k−r)//2`` (the default); the Amphion
+codec's ``(k−1−⌈r/2⌉, k−1−⌊r/2⌋)`` with k = 2r is asymmetric for an odd r.
+
+`WNConv1d` takes Flax's ``"SAME"`` padding at stride 1 (the default), or a
+stride and an explicit ``(left, right)`` padding (the codec's strided
+encoder convolutions).
 """
 
 from __future__ import annotations
@@ -32,14 +38,24 @@ def _normalized(v: torch.Tensor, scale: torch.Tensor, dims: tuple[int, ...],
 
 
 class WNConv1d(nn.Module):
-    """Flax ``WeightNorm(Conv(out, (k,), kernel_dilation=(d,), padding="SAME"))``.
+    """Flax ``WeightNorm(Conv(out, (k,), kernel_dilation=(d,), padding="SAME"))``,
+    or with ``stride`` and ``padding=(left, right)``
+    ``WeightNorm(Conv(out, (k,), strides=(stride,), padding=[padding]))``.
 
     ``weight`` (out, in, k) is the unnormalised kernel, ``scale`` (out,)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1,
+                 padding: tuple[int, int] | None = None):
         super().__init__()
         self.dilation = dilation
+        self.stride = stride
+        if padding is None:  # "SAME"; at stride 1 only
+            if stride != 1:
+                raise ValueError("WNConv1d: a strided convolution takes an explicit padding")
+            span = dilation * (kernel_size - 1)
+            padding = (span // 2, span - span // 2)
+        self.padding = tuple(padding)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale = nn.Parameter(torch.ones(out_channels))
@@ -47,22 +63,37 @@ class WNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _normalized(self.weight, self.scale, (1, 2), 0)
-        span = self.dilation * (self.weight.shape[-1] - 1)  # "SAME" at stride 1
-        xs = F.pad(x.transpose(1, 2), (span // 2, span - span // 2))
-        return F.conv1d(xs, w, self.bias, dilation=self.dilation).transpose(1, 2)
+        xs = F.pad(x.transpose(1, 2), self.padding)
+        return F.conv1d(xs, w, self.bias, stride=self.stride,
+                        dilation=self.dilation).transpose(1, 2)
 
 
 class WNConvTranspose1d(nn.Module):
     """Flax ``WeightNorm(ConvTranspose(out, (k,), strides=(r,), padding=
-    ((k−1−p, k−1−(k−r−p)),)))``, p = (k − r)//2: (B, T, in) → (B, T·r, out).
+    ((pl, pr),)))``: (B, T, in) → (B, (T−1)·r + pl + pr − k + 2, out).
+    ``padding`` defaults to BigVGAN's ``(k−1−p, k−1−(k−r−p))``,
+    p = (k − r)//2, whose output is T·r long.
 
     ``weight`` (in, out, k) is the unnormalised kernel in torch's layout,
     already reversed along k; ``scale`` (out,)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int,
+                 padding: tuple[int, int] | None = None):
         super().__init__()
+        k = kernel_size
+        if padding is None:
+            p = (k - stride) // 2
+            padding = (k - 1 - p, k - 1 - (k - stride - p))
+        pl, pr = padding
+        if not 0 <= pl <= k - 1 or pr < 0:
+            raise ValueError(f"WNConvTranspose1d: padding {padding} out of range for k={k}")
         self.stride = stride
-        self.padding = (kernel_size - stride) // 2
+        self.padding = k - 1 - pl
+        self.output_padding = max(pr - pl, 0)
+        if self.output_padding >= stride:
+            raise ValueError(f"WNConvTranspose1d: padding {padding} extends the right by "
+                             f"{self.output_padding} >= stride {stride}")
+        self.extent = pl + pr - k + 2  # output length (T - 1)·r + extent
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale = nn.Parameter(torch.ones(out_channels))
@@ -71,5 +102,5 @@ class WNConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _normalized(self.weight, self.scale, (0, 2), 1)
         y = F.conv_transpose1d(x.transpose(1, 2), w, self.bias, stride=self.stride,
-                               padding=self.padding)
-        return y[:, :, : x.shape[1] * self.stride].transpose(1, 2)
+                               padding=self.padding, output_padding=self.output_padding)
+        return y[:, :, : (x.shape[1] - 1) * self.stride + self.extent].transpose(1, 2)

@@ -95,11 +95,13 @@ _BANDS: dict = {}  # id(fbank) → (weak reference, version, bands, weights)
 
 def _device_band_tables(fbank: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`band_tables` of ``fbank`` on its device, kept while the tensor lives
-    and is not changed in place (its version counter)."""
+    and is not changed in place (its version counter; a tensor made under
+    ``torch.inference_mode`` has none and is taken as unchanged)."""
     hit = _BANDS.get(id(fbank))
-    if hit is None or hit[0]() is not fbank or hit[1] != fbank._version:
+    version = None if fbank.is_inference() else fbank._version
+    if hit is None or hit[0]() is not fbank or hit[1] != version:
         bands, weights = band_tables(fbank.detach().cpu().numpy())
-        hit = (weakref.ref(fbank), fbank._version, torch.from_numpy(bands).to(fbank.device),
+        hit = (weakref.ref(fbank), version, torch.from_numpy(bands).to(fbank.device),
                torch.from_numpy(weights).to(fbank.device))
         _BANDS[id(fbank)] = hit
     return hit[2], hit[3]

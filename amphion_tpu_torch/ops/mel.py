@@ -101,7 +101,8 @@ def log_compression(x: torch.Tensor, clip_val: float = 1e-5,
 def _fbank(cfg: MelConfig, device: torch.device) -> torch.Tensor:
     fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mel, cfg.fmin,
                         cfg.fmax, cfg.htk)
-    return torch.from_numpy(fb).to(device)
+    with torch.inference_mode(False):  # cached: a normal tensor whoever asks first
+        return torch.from_numpy(fb).to(device)
 
 
 def _standardize(mel: torch.Tensor, cfg: MelConfig) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Batched Vevo serving (port of `VevoService`,
-`amphion_tpu/serving/service.py:328-510`, the window batcher).
+"""Batched serving (port of `MaskGCTService` and `VevoService`,
+`amphion_tpu/serving/service.py:74-215` and `:328-510`, the window
+batcher). `MaskGCTService` is described in its class; the rest of this
+text is about Vevo.
 
 Concurrent `synthesize` calls run their front end (mel, tokens, the prompt
 mel) in the caller's thread, one at a time, and are coalesced by
@@ -38,6 +40,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from amphion_tpu_torch.models.tts.maskgct.ragged_sampling import (
+    maskgct_generators,
+    pack_prefix_target,
+    s2a_sample_ragged,
+    t2s_sample_ragged,
+)
 from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
 from amphion_tpu_torch.models.vc.flow_matching_transformer import fmt_inference_ragged
 from amphion_tpu_torch.ops.kernels.int8_matmul import GEMV_MAX_M
@@ -59,6 +67,126 @@ def _pad_audio_grid(audio: torch.Tensor, sr: int, grid_s: float) -> torch.Tensor
     g = max(int(grid_s * sr), 1)
     m = max(g, -(-len(audio) // g) * g)
     return F.pad(audio, (0, m - len(audio)))
+
+
+@dataclass
+class _MaskGCTCoreRequest:
+    prompt_semantic: torch.Tensor  # (Lp,) int
+    prompt_acoustic: torch.Tensor  # (Q, Lp) int
+    phone_ids: torch.Tensor  # (Lph,) int
+    target_len: int
+    seed: int
+
+
+class MaskGCTService:
+    """Thread-safe batched MaskGCT synthesis around a `MaskGCTPipeline`.
+
+    Concurrent `synthesize` calls run their front end (g2p, the semantic
+    tokens, the prompt's acoustic codes) in the caller's thread, one at a
+    time, after padding the prompt to a 0.5 s grid (``audio_grid_s``), and
+    are coalesced by `MicroBatcher` into batches of one bucket: prompt,
+    phone and target lengths each quantized onto a ladder of ``len_step``.
+    A batch runs the ragged T2S, the ragged S2A (conditioned on semantic
+    tokens when the S2A's checkpoint holds ``cond_emb``, else on the
+    semantic codec's decoded latents) and one length-masked codec decode,
+    each request cut to its ``target_len`` frames. Each request draws from
+    its own generators (`maskgct_generators`), so its tokens do not depend on
+    its company. ``t2s_kwargs``/``s2a_kwargs`` go to the samplers (the
+    pipeline's ``compute_dtype`` unless they name one).
+
+    As in the JAX package, the semantic tokens run at ``sample_rate / mel
+    hop`` (200 Hz on the served config) while the codec runs at
+    ``sample_rate / hop`` (100 Hz): the prompt is cut to the codec's frame
+    count, and a target of N frames decodes to N codec frames.
+    """
+
+    def __init__(self, pipeline, max_batch: int = 8, max_wait_ms: float = 50.0,
+                 len_step: int = 64, max_prompt_len: int = 512,
+                 max_target_len: int = 1024, max_phone_len: int = 512,
+                 t2s_kwargs: dict | None = None, s2a_kwargs: dict | None = None,
+                 audio_grid_s: float = 0.5):
+        self.pipeline = pipeline
+        self.audio_grid_s = audio_grid_s
+        self.len_step = len_step
+        self.max_prompt_len = max_prompt_len
+        self.max_target_len = max_target_len
+        self.max_phone_len = max_phone_len
+        dtype = {"compute_dtype": pipeline.compute_dtype}
+        self.t2s_kwargs = {**dtype, **(t2s_kwargs or {})}
+        self.s2a_kwargs = {**dtype, **(s2a_kwargs or {})}
+        self._frontend_lock = threading.Lock()
+        self.batcher = MicroBatcher(self._run_batch, self._bucket_of,
+                                    max_batch=max_batch, max_wait_ms=max_wait_ms)
+
+    def _bucket_of(self, req: _MaskGCTCoreRequest):
+        return (bucket_ladder(len(req.prompt_semantic), self.len_step, self.max_prompt_len),
+                bucket_ladder(len(req.phone_ids), self.len_step, self.max_phone_len),
+                bucket_ladder(req.target_len, self.len_step, self.max_target_len))
+
+    def synthesize(self, prompt_audio, prompt_text: str, target_text: str,
+                   target_len: int | None = None, seed: int = 0) -> np.ndarray:
+        """Blocking single request; batches with concurrent callers. Returns
+        the waveform as float32 numpy."""
+        return self.batcher(self._prepare_request(prompt_audio, prompt_text, target_text,
+                                                  target_len, seed))
+
+    @torch.inference_mode()
+    def _prepare_request(self, prompt_audio, prompt_text, target_text, target_len,
+                         seed) -> _MaskGCTCoreRequest:
+        p = self.pipeline
+        audio = _pad_audio_grid(p.audio(prompt_audio), p.sample_rate, self.audio_grid_s)
+        with self._frontend_lock:
+            if p.symbol_table is None:
+                p.symbol_table = p.g2p.build_symbol_table([prompt_text, target_text])
+            phones_prompt = p.g2p.to_ids(prompt_text, p.symbol_table)
+            phones_target = p.g2p.to_ids(target_text, p.symbol_table)
+            prompt_semantic = p.extract_semantic_code(audio)[0]
+            prompt_acoustic = p.extract_acoustic_code(audio)[:, 0]  # (Q, Lp)
+        lp = min(len(prompt_semantic), prompt_acoustic.shape[1], self.max_prompt_len)
+        if target_len is None:
+            ratio = max(len(phones_target), 1) / max(len(phones_prompt), 1)
+            target_len = int(lp * ratio) + 1
+        target_len = min(int(target_len), self.max_target_len)
+        phone_ids = torch.tensor(phones_prompt + phones_target, dtype=torch.long,
+                                 device=audio.device)
+        return _MaskGCTCoreRequest(prompt_semantic[:lp], prompt_acoustic[:, :lp],
+                                   phone_ids[: self.max_phone_len], target_len, seed)
+
+    def stats(self) -> dict:
+        return self.batcher.stats.snapshot()
+
+    def shutdown(self) -> None:
+        self.batcher.shutdown()
+
+    @torch.inference_mode()
+    def _run_batch(self, bucket, reqs: list[_MaskGCTCoreRequest]) -> list[np.ndarray]:
+        lp_max, lph_max, t_max = bucket
+        p = self.pipeline
+        dev = p.device
+
+        def lengths(vals):
+            return torch.tensor(vals, dtype=torch.long, device=dev)
+
+        prompt_sem = torch.stack([_pad_to(r.prompt_semantic, lp_max) for r in reqs])
+        prompt_ac = torch.stack([_pad_to(r.prompt_acoustic.T, lp_max).T for r in reqs])
+        phones = torch.stack([_pad_to(r.phone_ids, lph_max) for r in reqs])
+        prompt_len = lengths([len(r.prompt_semantic) for r in reqs])
+        phone_len = lengths([len(r.phone_ids) for r in reqs])
+        target_len = lengths([r.target_len for r in reqs])
+        gens = [maskgct_generators(r.seed, dev) for r in reqs]
+        semantic = t2s_sample_ragged(p.t2s, prompt_sem, prompt_len, phones, phone_len,
+                                     target_len, [g[0] for g in gens], t_max,
+                                     **self.t2s_kwargs)  # (B, t_max)
+        sem_packed = pack_prefix_target(prompt_sem, semantic, prompt_len)
+        if not p.token_cond:  # mel-proxy checkpoints condition on codec latents
+            sem_packed = p.semantic_codec.decode_tokens(sem_packed)
+        codes = s2a_sample_ragged(p.s2a, sem_packed, prompt_ac, prompt_len, target_len,
+                                  [g[1] for g in gens], t_max,
+                                  **self.s2a_kwargs)  # (B, Q, t_max)
+        wav = p.codec_decode(codes, target_len).float().cpu().numpy()  # (B, samples)
+        samples_per_frame = wav.shape[-1] / t_max
+        return [wav[i, : int(round(r.target_len * samples_per_frame))]
+                for i, r in enumerate(reqs)]
 
 
 @dataclass

@@ -13,14 +13,16 @@ module's parameters finds each one's leaf in the tree by its dotted path
   scope that holds the leaf ``"<conv name>/kernel/scale"``;
 - LayerNorm ``scale`` → ``weight``; Embedding ``embedding`` → ``weight``;
 - any other parameter (RMSNorm ``scale``, ConvNeXt ``gamma``, a VQ
-  ``codebook``) carries over under its own name;
+  ``codebook``, MaskGCT's ``mask_emb``) carries over under its own name;
 - a quantized projection (`QDense`, `QDense4`) takes ``kernel_q`` (K, N)
   as its integers, transposed to (N, K) (int4 leaves are read as int8 and
   packed two per byte along K), and ``scale`` as float32.
 
 Every parameter of the module must be found in the tree, with its shape;
 leaves of the tree that the module does not hold (a decoder the port does
-not run) are left out.
+not run) are left out. A MaskGCT S2A holds ``cond_emb`` and ``sem_proj`` only
+where the tree does: build it with `models/tts/maskgct/maskgct.
+s2a_conditioning` of the tree's keys.
 
 `init_like_flax` draws a module's parameters as the JAX modules' Flax
 initializers do, walking the same scopes, so a port model trained from
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from amphion_tpu_torch.models.tts.maskgct.maskgct import MaskGCTS2A, MaskGCTT2S
 from amphion_tpu_torch.modules.activations import Snake, SnakeBeta
 from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
 from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
@@ -145,7 +148,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
     - Embed (``nn.Embedding``): normal with std 1/√features;
     - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
     - VQ codebooks: ``FactorizedVectorQuantize`` normal(1),
-      ``VectorQuantize`` uniform with variance 1/codebook_size.
+      ``VectorQuantize`` uniform with variance 1/codebook_size;
+    - MaskGCT's ``mask_emb``: normal with std 0.02.
 
     Buffers (quantized projections) are left alone; a parameter of any
     other kind raises."""
@@ -185,6 +189,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(sub, VectorQuantize):
             limit = (3.0 / sub.codebook.shape[0]) ** 0.5
             sub.codebook.uniform_(-limit, limit, generator=g)
+        elif isinstance(sub, (MaskGCTT2S, MaskGCTS2A)):
+            sub.mask_emb.normal_(0.0, 0.02, generator=g)
         else:
             if own:
                 raise TypeError(f"init_like_flax: no Flax initializer known for "

@@ -37,7 +37,20 @@ at the full width of ``config/vevo.json`` with random weights from
   `amphion_tpu_torch.bins.vocoder.inference.main` on six files of 2-10 s
   (mel kernel, anti-aliased SnakeBeta kernel in all 73 activations), a
   small generator on the card against the CPU, and Snake's kernel driven
-  through ``Snake(use_pallas=True)`` (no model path runs it);
+  through ``Snake(use_pallas=True)``;
+- MaskGCT zero-shot TTS as `bins/serve.py` serves it by default, at the
+  width of ``egs/tts/MaskGCT/exp_config.json`` (T2S and S2A 1024 x 16
+  layers in bf16, the Amphion codec, the mel semantic front end): port
+  checkpoints written from random weights, the pipeline built by
+  `bins/tts/inference.build_maskgct_pipeline`, four concurrent requests in
+  one bucket through `MaskGCTService` (launches: flash 1 664, mel 4, Snake
+  145 in the codec, its first model path), each kernel held against its
+  plain version on the inputs the batch gave it (flash within the bf16
+  tolerance, Snake to the bit, mel within 1e-3), request 0 alone against
+  request 0 in the batch (reported), a profiled batch, a small float32
+  batch on the card against the CPU with the same injected draws, and
+  `bins/serve.py --backend maskgct` answering six requests from
+  `serving/loadgen.py`;
 
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
@@ -55,7 +68,7 @@ paths gave it (by CUDA-graph replays, beside SDPA timed the same way for
 the flash kernels), and profiles a decode chunk of each engine, two steps
 of each trainer and one 10 s copy synthesis. Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--max-new 768]
+    python3 chip_smoke.py [--seed 0] [--max-new 512]
 
 Exits nonzero on any failure, and at once when there is no CUDA card. The
 last three lines of standard output are the ``{"kernels": [...]}`` timing
@@ -2740,11 +2753,586 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
     return out
 
 
+# -- MaskGCT: bins/serve.py's default backend (kernels 6, 3 and 1) -----------------
+
+MG_CONFIG = "egs/tts/MaskGCT/exp_config.json"
+MG_LAYERS = 16
+MG_T2S_STEPS, MG_S2A_STEPS = 25, 16 + 11  # the samplers' defaults: 12 quantizers
+# four requests of one (prompt, phone, target) bucket: prompts 3.6-4.0 s
+# (0.5 s grid → 4.0 s → 400 codec frames, rung 448), 94-105 phones (rung
+# 128), 470-500 target frames (rung 512); (prompt s, prompt text, target
+# text, target frames, seed)
+MG_REQUESTS = [
+    (3.6, "the quick brown fox jumps over the lazy dog",
+     "a bright morning light fell across the quiet harbor town", 470, 101),
+    (3.75, "she sells sea shells by the sea shore",
+     "every evening the old clock tower rang out over the hills", 480, 102),
+    (3.9, "please call stella and ask her to bring these things",
+     "the river ran cold and clear beneath the stone bridge", 490, 103),
+    (4.0, "we walked along the beach until the sun went down",
+     "music drifted from an open window on the second floor", 500, 104),
+]
+MG_SNAKE_PER_PASS = 4 * (2 * 3 + 1) + 1  # 29 in an encoder or a decoder pass
+MG_LAUNCHES = {"flash_attn_fwd": MG_LAYERS * (MG_T2S_STEPS + MG_S2A_STEPS) * 2,  # 1 664
+               "mel": len(MG_REQUESTS),  # 4
+               "snake": MG_SNAKE_PER_PASS * (len(MG_REQUESTS) + 1)}  # 145
+MG_GROUPS = [("flash_attn_fwd", ("flash_fwd",)), ("snake", ("snake",)), ("mel", ("mel_kernel",))]
+
+
+class CallRecorder:
+    """While installed, records calls of a wrapper that its callers look up by
+    its module-level name at each call: ``keep(i, args)`` picks which (by
+    call index) have their tensor arguments cloned. Thread-safe (the
+    front end runs in the request threads, the batch in the batcher's)."""
+
+    def __init__(self, mod, name: str, keep=lambda i, args: True):
+        self.mod, self.name, self.wrapped = mod, name, getattr(mod, name)
+        self.keep, self.calls, self.n = keep, [], 0
+        self.lock = threading.Lock()
+        setattr(mod, name, self)
+
+    def __call__(self, *args, **kw):
+        with self.lock:
+            i, self.n = self.n, self.n + 1
+        if self.keep(i, args):
+            kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            with self.lock:
+                self.calls.append((i, kept))
+        return self.wrapped(*args, **kw)
+
+    def remove(self) -> None:
+        setattr(self.mod, self.name, self.wrapped)
+
+
+def mg_flash_keep(i: int, args) -> bool:
+    """The flash calls checked on the path: layers 0 and 15 of both passes at
+    T2S steps 0, 12, 24 and S2A steps 0 and 15 (layer 0's first and last),
+    16 (quantizer 1) and 26 (the last). Calls run 16 a pass, two passes a
+    step, T2S first."""
+    step, layer = divmod(i, 2 * MG_LAYERS)[0], i % MG_LAYERS
+    return layer in (0, MG_LAYERS - 1) and step in (0, 12, 24, 25, 40, 41, 51)
+
+
+def mg_write_checkpoints(root: str, seed: int) -> tuple[str, dict]:
+    """A config over `egs/tts/MaskGCT/exp_config.json` under ``root``, its
+    char symbol table, and port checkpoints at full width with random
+    weights from ``seed``: T2S + S2A (the mel-proxy S2A: ``sem_proj``, no
+    ``cond_emb``) under ``log_dir/maskgct/checkpoint``, the semantic codec
+    and the acoustic codec (`mg_codec_unsaturated`) in their own."""
+    import types
+
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
+    from amphion_tpu_torch.models.codec.repcodec import RepCodec, RepCodecConfig
+    from amphion_tpu_torch.models.tts.maskgct.maskgct import (
+        MaskGCTS2A, MaskGCTT2S, S2AConfig, T2SConfig)
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+    from amphion_tpu_torch.text.g2p import G2PModule
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    path = os.path.join(root, "maskgct.json")
+    with open(path, "w") as f:
+        json.dump({"base_config": os.path.abspath(MG_CONFIG), "dataset": ["smoke"],
+                   "log_dir": os.path.join(root, "ckpts"),
+                   "preprocess": {"processed_dir": os.path.join(root, "processed")}}, f)
+    cfg = load_config(path)
+    texts = [t for r in MG_REQUESTS for t in r[1:3]] + [MG_HTTP_TEXT]
+    table = G2PModule("char").build_symbol_table(texts)
+    table.to_file(os.path.join(root, "processed", "smoke", "symbols.dict"))
+    m, p = cfg["model"], cfg["preprocess"]
+    g = torch.Generator(DEV).manual_seed(seed)
+
+    def save(model_state: dict, where: str) -> None:
+        state = types.SimpleNamespace(state_dict=lambda: {"model": model_state})
+        CheckpointManager(where).save(state, 1, 0, 0.0)
+
+    with torch.device(DEV):
+        t2s = init_like_flax(MaskGCTT2S(T2SConfig(
+            **{k: m["t2s"][k] for k in ("hidden", "num_layers", "num_heads", "codebook_size")},
+            phone_vocab=max(len(table) + 1, 64))), g)
+        s2a = init_like_flax(MaskGCTS2A(S2AConfig(
+            **{k: m["s2a"][k] for k in ("hidden", "num_layers", "num_heads", "codebook_size")},
+            num_quantizers=m["codec"]["num_quantizers"],
+            semantic_dim=m["semantic_codec"]["hidden"]), False, True), g)
+        # the adaptive norms start at plain RMSNorm (to_weight 0): give them a
+        # random conditioning path, as a trained model has
+        for mod in (t2s, s2a):
+            for name, prm in mod.named_parameters():
+                if "to_weight.weight" in name:
+                    prm.data.normal_(0.0, 0.02, generator=g)
+        sem = init_like_flax(RepCodec(RepCodecConfig(
+            feature_dim=p["n_mel"], **{k: v for k, v in m["semantic_codec"].items()
+                                       if k in ("hidden", "codebook_size", "codebook_dim",
+                                                "num_blocks")}), with_decode=True), g)
+        codec = init_like_flax(AmphionCodec(CodecConfig(
+            sample_rate=p["sample_rate"], **{k: tuple(v) if k == "strides" else v
+                                             for k, v in m["codec"].items()})), g)
+        mg_codec_unsaturated(codec, g)
+    save({**{f"t2s.{k}": v for k, v in t2s.state_dict().items()},
+          **{f"s2a.{k}": v for k, v in s2a.state_dict().items()}},
+         os.path.join(root, "ckpts", "maskgct", "checkpoint"))
+    save(sem.state_dict(), os.path.join(root, "semantic"))
+    save(codec.state_dict(), os.path.join(root, "codec"))
+    n_params = {k: sum(x.numel() for x in mod.parameters())
+                for k, mod in (("t2s", t2s), ("s2a", s2a), ("semantic_codec", sem),
+                               ("acoustic_codec", codec))}
+    return path, n_params
+
+
+MG_HTTP_TEXT = "good evening and welcome to the late news from the city"
+
+
+@torch.no_grad()
+def mg_codec_unsaturated(codec, g) -> None:
+    """Snake α spread over [0.5, 1.5] and the residual units' output
+    convolutions scaled to 0.3, so that the served batch's waveforms are not
+    mostly the tanh's ±1: drawn as Flax draws it, the full-width decoder's
+    last activation reaches about 50 and saturates 85 % of the tanh; so
+    scaled, about 2.6. The values are chosen for that, not taken from a
+    trained codec; `maskgct_reference_phase` holds the card at Flax's own
+    draws."""
+    for name, prm in codec.named_parameters():
+        if name.endswith("alpha"):
+            prm.uniform_(0.5, 1.5, generator=g)
+        elif ".res_" in name and name.endswith("Conv_1.scale"):
+            prm.fill_(0.3)
+
+
+def mg_serve(svc, reqs, audio) -> tuple[list, float]:
+    """The requests at once, one thread each → (waveforms, wall)."""
+    out = [None] * len(reqs)
+
+    def one(i):
+        _, ptext, ttext, tlen, sd = reqs[i]
+        out[i] = svc.synthesize(audio[i], ptext, ttext, target_len=tlen, seed=sd)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(w is None for w in out):
+        raise SystemExit("maskgct: a request did not finish")
+    return out, wall
+
+
+class MGTokens:
+    """Records the samplers' outputs in `serving/service` (rows in request
+    order: the four target lengths differ)."""
+
+    def __init__(self):
+        from amphion_tpu_torch.serving import service as svc_mod
+
+        self.mod, self.out = svc_mod, {"t2s": [], "s2a": []}
+        self.real = {"t2s": svc_mod.t2s_sample_ragged, "s2a": svc_mod.s2a_sample_ragged}
+        for key in self.real:
+            setattr(svc_mod, f"{key}_sample_ragged", self._wrap(key))
+
+    def _wrap(self, key):
+        def run(*a, **kw):
+            out = self.real[key](*a, **kw)
+            order = torch.argsort(a[-3].cpu())
+            self.out[key].append(out.cpu()[order])
+            return out
+        return run
+
+    def remove(self):
+        for key, fn in self.real.items():
+            setattr(self.mod, f"{key}_sample_ragged", fn)
+
+
+def mg_profile(svc, audio) -> dict:
+    """One batch under torch.profiler (device activity): wall, busy share and
+    device time by group (library GEMMs, #6, #1, #3, cuDNN's convolutions,
+    the rest: elementwise, copies, sort and top-k)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = mg_serve(svc, MG_REQUESTS, audio)
+        torch.cuda.synchronize()
+    by_name, n = device_us_by_name(prof)
+    groups = {g: 0.0 for g, _ in MG_GROUPS}
+    groups.update(gemm=0.0, conv=0.0, other=0.0)
+    for name, us in by_name.items():
+        group = next((g for g, pats in MG_GROUPS if all(p in name for p in pats)), None)
+        low = name.lower()
+        if group is None and any(t in low for t in ("conv", "implicit", "winograd", "cudnn",
+                                                     "fft", "dgrad", "wgrad")):
+            group = "conv"
+        if group is None:
+            group = "gemm" if any(t in low for t in LIBRARY_GEMM) else "other"
+        groups[group] += us
+    busy = sum(groups.values()) / 1e6
+    top = sorted(((us, k[:90]) for k, us in by_name.items()), reverse=True)
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_records": n, "by_group_s": {k: v / 1e6 for k, v in groups.items()},
+            "top_kernels_ms": [[k, us / 1e3] for us, k in top[:10]]}
+
+
+def maskgct_reference_phase(seed: int) -> None:
+    """A small MaskGCT batch in float32 on the card against the CPU, at the
+    weights Flax's init draws, the same draws injected in both (numpy Gumbel
+    noise): T2S and S2A tokens equal. The codec decode of those codes is held
+    to the CPU's float64 decode of them, the truth: at these weights the
+    decoder's activations reach tens and float32 rounding alone moves the
+    waveform by about 1e-3 on either device, so a card-vs-CPU float32 gap
+    says nothing by itself. Two witnesses: the card's float64 decode (plain
+    Snake; #1 takes float32 only) within 1e-9 of the truth, and the card's
+    float32 decode (#1) no further from it than 4x the CPU's float32
+    decode is."""
+    import copy
+
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
+    from amphion_tpu_torch.models.tts.maskgct import ragged_sampling as rs
+    from amphion_tpu_torch.models.tts.maskgct.maskgct import (
+        MaskGCTS2A, MaskGCTT2S, S2AConfig, T2SConfig)
+    from amphion_tpu_torch.modules.activations import Snake
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    g = torch.Generator().manual_seed(seed + 13)
+    t2s = init_like_flax(MaskGCTT2S(T2SConfig(hidden=128, num_layers=2, num_heads=2,
+                                              codebook_size=256, phone_vocab=64)), g).eval()
+    s2a = init_like_flax(MaskGCTS2A(S2AConfig(hidden=128, num_layers=2, num_heads=2,
+                                              codebook_size=64, num_quantizers=3,
+                                              semantic_dim=32), False, True), g).eval()
+    codec = init_like_flax(AmphionCodec(CodecConfig(num_quantizers=3, codebook_size=64)), g)
+    codec64 = copy.deepcopy(codec).double()
+    for mod in codec64.modules():
+        if isinstance(mod, Snake):
+            mod.use_pallas = False
+    for mod in (t2s, s2a):
+        for name, prm in mod.named_parameters():
+            if "to_weight.weight" in name:
+                prm.data.normal_(0.0, 0.05, generator=g)
+    rng = np.random.default_rng(seed + 14)
+    b, lp, lph, tm = 3, 40, 48, 64
+    inp = dict(prompt=rng.integers(0, 256, (b, lp)), plen=[40, 27, 33],
+               phone=rng.integers(1, 64, (b, lph)), phlen=[48, 30, 41], tlen=[64, 45, 57],
+               pac=rng.integers(0, 64, (b, 3, lp)),
+               sem=rng.standard_normal((b, lp + tm, 32)).astype(np.float32))
+    t2s_draws = [rng.gumbel(size=(b, tm, 256) if i % 2 == 0 else (b, tm)).astype(np.float32)
+                 for i in range(2 * 6)]
+    s2a_draws = [rng.gumbel(size=(b, tm, 64) if i % 2 == 0 else (b, tm)).astype(np.float32)
+                 for i in range(2 * (4 + 2))]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        for mod in (t2s, s2a, codec, codec64):
+            mod.to(dev)
+
+        def L(k):
+            return torch.as_tensor(np.asarray(inp[k])).long().to(dev)
+        sem = rs.t2s_sample_ragged(t2s, L("prompt"), L("plen"), L("phone"), L("phlen"),
+                                   L("tlen"), [None] * b, tm, n_steps=6,
+                                   compute_dtype="float32", gumbel=iter(t2s_draws))
+        codes = rs.s2a_sample_ragged(s2a, torch.as_tensor(inp["sem"]).to(dev), L("pac"),
+                                     L("plen"), L("tlen"), [None] * b, tm, first_layer_steps=4,
+                                     compute_dtype="float32", gumbel=iter(s2a_draws))
+        with torch.no_grad():
+            wav = codec.decode_codes(codes.transpose(0, 1), L("tlen"))
+            wav64 = codec64.decode_codes(codes.transpose(0, 1), L("tlen"))
+        outs[dev] = sem.cpu(), codes.cpu(), wav.double().cpu(), wav64.cpu()
+    (s_g, c_g, w_g, w64_g), (s_c, c_c, w_c, truth) = outs["cuda"], outs["cpu"]
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+    e64, e_card, e_cpu = err(w64_g, truth), err(w_g, truth), err(w_c, truth)
+    check("maskgct reference: a small f32 batch at Flax-init weights, card vs CPU with the "
+          "same draws",
+          torch.equal(s_g, s_c) and torch.equal(c_g, c_c) and e64 <= 1e-9
+          and e_card <= 4 * e_cpu and bool(torch.isfinite(w_g).all())
+          and truth.abs().max().item() > 1e-3,
+          f"semantic tokens equal {torch.equal(s_g, s_c)} "
+          f"({(s_g == s_c).float().mean().item():.4f}), acoustic codes equal "
+          f"{torch.equal(c_g, c_c)} ({(c_g == c_c).float().mean().item():.4f}); waveform "
+          f"against the CPU's float64 decode: card float64 max|err| {e64:.3g} (tol 1e-9), "
+          f"card float32 {e_card:.3g}, CPU float32 {e_cpu:.3g} (card tol 4x CPU); card vs CPU "
+          f"float32 {err(w_g, w_c):.3g}; {(truth.abs() > 0.999).double().mean().item():.3f} of "
+          f"the samples saturate the tanh")
+
+
+def maskgct_phase(seed: int, kernels: dict) -> dict:
+    """MaskGCT as `bins/serve.py` serves it by default, at the width of
+    `egs/tts/MaskGCT/exp_config.json` (T2S and S2A 1024 × 16 layers, bf16;
+    codec 12 × 1024 RVQ, strides 2·4·5·6; semantic codec 8 192 codes; mel
+    front end), random weights from ``seed`` written as port checkpoints:
+    the pipeline built by `bins/tts/inference.build_maskgct_pipeline`, four
+    concurrent requests through `MaskGCTService` (a warm-up batch, a counted
+    and recorded batch, a profiled one), request 0 alone, kernels 6, 1 and 3
+    on the inputs the path gave them, then `bins/serve.py`'s maskgct backend
+    on 127.0.0.1 under `serving/loadgen.py`."""
+    import logging
+    import tempfile
+
+    from amphion_tpu_torch.bins import serve as serve_cli
+    from amphion_tpu_torch.bins.tts.inference import build_maskgct_pipeline
+    from amphion_tpu_torch.ops import mel as mel_ops
+    from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+    from amphion_tpu_torch.ops.kernels.mel import log_mel_ref
+    from amphion_tpu_torch.serving.service import MaskGCTService
+    from amphion_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(seed + 60)
+    audio = [synth_audio(rng, r[0]) for r in MG_REQUESTS]
+    out = {"card": nvidia_smi()}
+    with tempfile.TemporaryDirectory(prefix="maskgct_") as root:
+        t0 = time.perf_counter()
+        path, out["parameters"] = mg_write_checkpoints(root, seed)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the CLI's own defaults (max_batch 8, max_wait_ms 50, len_step 64, bf16)
+        args = serve_cli.parse_args([
+            "--config", path, "--semantic_ckpt", os.path.join(root, "semantic"),
+            "--codec_ckpt", os.path.join(root, "codec"), "--device", DEV, "--port", "0"])
+        t0 = time.perf_counter()
+        pipe = build_maskgct_pipeline(args, load_config(path), logging.getLogger("smoke"),
+                                      device=DEV, compute_dtype="bfloat16")
+        out["build_s"] = time.perf_counter() - t0
+        check("maskgct: the pipeline as built from the checkpoints",
+              not pipe.token_cond and pipe.semantic_rate == 200
+              and pipe.t2s.mask_emb.dtype == torch.bfloat16
+              and pipe.acoustic_codec.cfg.hop == 240
+              and pipe.acoustic_codec.cfg.num_quantizers == 12,
+              f"S2A conditioning: {'tokens' if pipe.token_cond else 'codec latents'} (its "
+              f"checkpoint holds sem_proj, no cond_emb), semantic rate {pipe.semantic_rate} Hz, "
+              f"T2S/S2A {pipe.t2s.mask_emb.dtype}, parameters {out['parameters']}")
+        # a window long enough for the four front ends, closed by the fourth
+        svc = MaskGCTService(pipe, max_batch=4, max_wait_ms=10000.0)
+        solo = MaskGCTService(pipe, max_batch=4, max_wait_ms=1.0)
+        try:
+            warm, out["warmup_wall_s"] = mg_serve(svc, MG_REQUESTS, audio)
+            toks = MGTokens()
+            flash_rec = CallRecorder(flash_mod, "_flash_forward", mg_flash_keep)
+            snake_rec = CallRecorder(snake_mod, "snake")
+            mel_rec = CallRecorder(mel_ops, "log_mel")
+            try:
+                torch.cuda.synchronize()
+                for k in kernels.values():
+                    k.reset()
+                wavs, wall = mg_serve(svc, MG_REQUESTS, audio)
+                torch.cuda.synchronize()
+                launches = {name: k.launches for name, k in kernels.items()}
+                for rec in (flash_rec, snake_rec, mel_rec):
+                    rec.remove()
+                batch_toks = {k: v[-1] for k, v in toks.out.items()}
+                mg_serve(solo, MG_REQUESTS[:1], audio[:1])
+                alone_toks = {k: v[-1] for k, v in toks.out.items()}
+            finally:
+                for rec in (toks, flash_rec, snake_rec, mel_rec):
+                    rec.remove()
+            audio_s = sum(len(w) for w in wavs) / SR
+            out.update(batch_wall_s=wall, audio_s=audio_s, audio_s_per_s=audio_s / wall,
+                       launches=launches, stats=svc.stats())
+            want = {k: MG_LAUNCHES.get(k, 0) for k in launches}
+            check("maskgct batch: launches as worked out beforehand (#6 16 layers x (25 + 27) "
+                  "steps x 2 passes, #3 one a request, #1 29 a codec pass x (4 encodes + 1 "
+                  "batched decode)), no other kernel", launches == want,
+                  f"{launches} (want {want})")
+            lens = [len(w) for w in wavs]
+            check("maskgct batch: four finite waveforms of target_len x 240 samples",
+                  lens == [r[3] * 240 for r in MG_REQUESTS]
+                  and all(np.isfinite(w).all() and np.abs(w).max() > 1e-3 for w in wavs)
+                  and svc.stats()["max_batch"] == 4,
+                  f"lengths {lens}, max|wav| {[float(np.abs(w).max()) for w in wavs]}, batch "
+                  f"sizes up to {svc.stats()['max_batch']}")
+            same = [bool(np.array_equal(a, b)) for a, b in zip(warm, wavs)]
+            agree = {k: float((alone_toks[k][0] == batch_toks[k][0]).float().mean())
+                     for k in batch_toks}
+            out.update(rerun_bit_equal=same, alone_vs_batch_token_agreement=agree)
+            log(f"maskgct: the batch again equals the warm-up batch bit for bit: {same}; "
+                f"request 0 alone against request 0 in the batch (bf16 cuBLAS products, no "
+                f"row-invariance promise: reported, not gated): semantic tokens agree "
+                f"{agree['t2s']:.4f}, acoustic codes {agree['s2a']:.4f}")
+            # kernel 6 on the calls recorded at its wrapper
+            worst6, short = 0.0, 0
+            for i, (q, k, v, mask, causal, lse) in flash_rec.calls:
+                got = flash_mod._flash_forward(q, k, v, mask, causal, False)
+                ref = flash_mod.attention_ref(q, k, v, mask, causal)
+                ok, detail = close_bf16(got, ref)
+                again = torch.equal(flash_mod._flash_forward(q, k, v, mask, causal, False), got)
+                if not (ok and again):
+                    check(f"maskgct #6 call {i} {tuple(q.shape)}", False,
+                          f"{detail}; relaunch bit-equal {again}")
+                worst6 = max(worst6, (got.float() - ref.float()).abs().max().item())
+                short += int(mask is not None and bool((mask == 0).any()))
+            check("maskgct #6 on the path's own inputs against attention_ref (bf16 tolerance)",
+                  len(flash_rec.calls) == 28 and short > 0,
+                  f"{len(flash_rec.calls)} recorded calls (layers 0 and 15 of both passes, "
+                  f"7 steps), {short} with a key mask that cuts a row short, each within "
+                  f"tolerance and bit-equal on relaunch; max|err| {worst6:.3g}")
+            # kernel 1: every launch of the batch to the bit
+            worst1, shapes = 0.0, {}
+            for i, (x, alpha) in snake_rec.calls:
+                got, ref = snake_mod.snake(x, alpha), snake_mod.snake_ref(x, alpha)
+                if not torch.equal(got, ref):
+                    err = (got - ref).abs().max().item()
+                    check(f"maskgct #1 call {i} {tuple(x.shape)}", False,
+                          f"max|err| {err:.3g} (want bit-equal)")
+                shapes.setdefault(tuple(x.shape), [x, alpha, 0])[2] += 1
+            check("maskgct #1: each of the batch's launches bit-equal to snake_ref",
+                  len(snake_rec.calls) == MG_LAUNCHES["snake"],
+                  f"{len(snake_rec.calls)} launches, {len(shapes)} shapes from "
+                  f"{min(shapes)} to {max(shapes)}, float32, each the plain version's bits")
+            worst3 = 0.0
+            for i, (y, fb, n_fft, hop, win, clip) in mel_rec.calls:
+                got = mel_ops.log_mel(y, fb, n_fft, hop, win, clip)
+                worst3 = max(worst3, (got - log_mel_ref(y, fb, n_fft, hop, win, clip))
+                             .abs().max().item())
+            check("maskgct #3: the front end's calls against the plain version",
+                  len(mel_rec.calls) == 4 and worst3 <= 1e-3,
+                  f"{len(mel_rec.calls)} calls, max|err| {worst3:.3g} (tol 1e-3)")
+            out["profile"] = mg_profile(svc, audio)
+            log(f"maskgct profiled batch ({nvidia_smi()}): {json.dumps(out['profile'])}")
+        finally:
+            svc.shutdown()
+            solo.shutdown()
+        out["max_abs_err"] = {"flash_attn_fwd": worst6, "snake": 0.0, "mel": worst3}
+        rows = mg_kernel_rows(flash_rec.calls, shapes, launches, worst6)
+        del pipe, svc, solo, flash_rec, snake_rec, mel_rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["http"] = mg_http_phase(args, kernels, audio)
+    log(f"maskgct ({out['card']}): " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("profile",)}))
+    out["rows"] = rows
+    return out
+
+
+def mg_http_phase(args, kernels: dict, audio: list) -> dict:
+    """`bins/serve.py --backend maskgct` as a user starts it (the backend factory the
+    CLI calls, `serve` on 127.0.0.1 at a port the OS picks), answering six
+    requests of a fixed Poisson trace from `serving/loadgen.py`; each
+    response a 24 kHz mono PCM16 wav of ``int(target_sec · 200)`` codec
+    frames of 240 samples."""
+    import base64
+    import io
+    import urllib.request
+    import wave
+
+    from amphion_tpu_torch.bins import serve as serve_cli
+    from amphion_tpu_torch.serving import loadgen
+
+    t0 = time.perf_counter()
+    backend = serve_cli.BUILDERS["maskgct"](args)
+    build_s = time.perf_counter() - t0
+    httpd = serve_cli.serve(backend.synth, backend.stats, "maskgct", port=0,
+                            input_sr=backend.sample_rate)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    secs = [2.35, 2.4, 2.45, 2.5, 2.4, 2.45]
+    replies = {}
+    submit = loadgen.http_synthesize_submit(url, timeout_s=600)
+
+    def make_request(i):
+        r = MG_REQUESTS[i % len(MG_REQUESTS)]
+        wav = serve_cli._encode_wav_bytes(audio[i % len(audio)], SR)
+        return {"prompt_wav": base64.b64encode(wav).decode(), "prompt_text": r[1],
+                "target_text": r[2] if i < 4 else MG_HTTP_TEXT, "target_sec": secs[i],
+                "seed": 700 + i}
+
+    def keep(payload):
+        replies[payload["seed"]] = submit(payload)
+
+    try:
+        for k in kernels.values():
+            k.reset()
+        res = loadgen.run_trace(keep, make_request, loadgen.poisson_arrivals(2.0, 6, seed=3),
+                                drain_timeout_s=600)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        with urllib.request.urlopen(url + "/api/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+        backend.shutdown()
+    lens = {}
+    for sd, data in sorted(replies.items()):
+        with wave.open(io.BytesIO(data)) as w:
+            lens[sd] = (w.getframerate(), w.getnchannels(), w.getsampwidth(), w.getnframes())
+    want = {700 + i: (SR, 1, 2, int(s * 200) * 240) for i, s in enumerate(secs)}
+    out = {"build_s": build_s, "load": res.row(), "latency_ms": res.lat_ms, "stats": stats,
+           "launches": launches}
+    log(f"maskgct http (bins/serve.py, window batcher, {nvidia_smi()}): " + json.dumps(out))
+    check("maskgct http: six requests answered with well-formed wavs",
+          res.n_ok == 6 and res.n_err == 0 and lens == want,
+          f"{res.n_ok} ok, {res.n_err} failed; (rate, channels, width, samples) {lens}, "
+          f"want {want}")
+    check("maskgct http: the path's kernels launched (#3 once a request)",
+          launches["flash_attn_fwd"] > 0 and launches["snake"] > 0 and launches["mel"] == 6
+          and stats["completed"] == 6, json.dumps(launches))
+    return out
+
+
+def mg_kernel_rows(flash_calls, snake_shapes: dict, launches: dict, flash_err: float) -> list:
+    """Rows of kernels 6 and 1 at this path's shapes: #6 at the T2S
+    conditional pass (the first recorded call: (4, 1088, 16, 64) bf16 with
+    its ragged key mask) against attention_ref and SDPA; #1 at each of the
+    codec's Snake shapes on its recorded input (the mean weighted by the
+    batch's launches of each shape) against snake_ref (no library call
+    computes Snake)."""
+    from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+
+    q, k, v, mask, causal, _ = flash_calls[0][1]
+    b, L, h, d = q.shape
+    valid = (mask > 0).sum(dim=1).float()
+    bmask = (mask > 0)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel = lambda: flash_mod.flash_attention(q, k, v, mask)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask)  # noqa: E731
+    fl_ms, fl_lib = graph_ms(kernel), graph_ms(sdpa)
+    fl_plain = graph_ms(lambda: flash_mod.attention_ref(q, k, v, mask), iters=5)
+    fl_flops = 4.0 * h * d * L * float(valid.sum())
+    fl_bytes = 4 * b * L * h * d * 2 + b * L * 4
+    fl_bound, fl_by = _bound(fl_flops, fl_bytes)
+    log(f"timing maskgct flash_attn_fwd ({nvidia_smi()}): ({b}, {L}, {h}, {d}) bf16, valid keys "
+        f"{valid.long().tolist()}: kernel {fl_ms:.5f} ms ({fl_flops / fl_ms / 1e9:.1f} "
+        f"TFLOP/s), plain {fl_plain:.5f} ms, SDPA {fl_lib:.5f} ms, bound {fl_bound:.5f} ms")
+    rows = [_row("flash_attn_fwd_maskgct", "flash_attn_fwd.cu", 843, launches["flash_attn_fwd"],
+                 flash_err, fl_ms, fl_plain, fl_bound, fl_by, fl_lib,
+                 ms_is=f"one call at the T2S conditional pass ({b}, {L}, {h}, {d}) bf16 with "
+                       f"the batch's ragged key mask (valid {valid.long().tolist()}), recorded "
+                       "at the wrapper; CUDA-graph replays",
+                 launches_are="one MaskGCT batch of four (T2S 25 steps, S2A 27, two passes a "
+                              "step, 16 layers)")]
+    per = []
+    for shape, (x, alpha, n) in sorted(snake_shapes.items()):
+        ms = graph_ms(lambda: snake_mod.snake(x, alpha))
+        plain = graph_ms(lambda: snake_mod.snake_ref(x, alpha))
+        numel = x.numel()
+        bound, by = max(6.0 * numel / PEAK_F32, (8.0 * numel + 4 * shape[2]) / HBM) * 1e3, (
+            "operations" if 6.0 * numel / PEAK_F32 >= (8.0 * numel + 4 * shape[2]) / HBM
+            else "bytes")
+        per.append({"shape": shape, "launches": n, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by})
+    tot = sum(p["launches"] for p in per)
+
+    def mean(key):
+        return sum(p[key] * p["launches"] for p in per) / tot
+    log(f"timing maskgct snake ({nvidia_smi()}): " + json.dumps(per))
+    rows.append(_row("snake_maskgct", "snake.cu", 78, launches["snake"], 0.0, mean("ms"),
+                     mean("plain_ms"), mean("bound_ms"),
+                     max(("bytes", "operations"),
+                         key=lambda k: sum(p["bound_by"] == k for p in per)), None,
+                     ms_is="mean per launch over one MaskGCT batch's 145 (4 codec encodes of 4 s "
+                           "prompts, 1 batched decode of 4 x 512 frames), each shape timed on "
+                           "its recorded input by CUDA-graph replays",
+                     per_shape=per, via="pallas_kernels.py:89 snake_pallas, forward only"))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new", type=int, default=768,
-                    help="AR decode steps of the voice runs (bins/serve.py's default)")
+    ap.add_argument("--max-new", type=int, default=512,
+                    help="AR decode steps of the voice runs (bins/serve.py's default is "
+                         "768; cut so that the whole run stays well inside its time)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2813,6 +3401,15 @@ def main() -> int:
     rows.append(bwd_row)
     voc = vocoder_phase(args.seed, kernels)
     rows += snake_timing_phase(voc, errs, kernels)
+    del voc
+    gc.collect()
+    torch.cuda.empty_cache()
+    maskgct_reference_phase(args.seed)
+    mg = maskgct_phase(args.seed, kernels)
+    for r in rows:  # kernel 1's first model path
+        if r["name"] == "snake":
+            r["maskgct_path_launches"] = mg["launches"]["snake"]
+    rows += mg["rows"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

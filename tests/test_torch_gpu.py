@@ -860,3 +860,116 @@ def test_continuous_engine_graphs_match_eager_and_solo(cuda, dtype):
         solo = toks[0, :int(n[0])].cpu()
         assert torch.equal(out[True][i], out[False][i]), i
         assert torch.equal(out[True][i], solo), i
+
+
+def _tiny_codec():
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    codec = AmphionCodec(CodecConfig(encoder_dim=8, latent_dim=16, decoder_dim=8,
+                                     strides=(2, 5), num_quantizers=3, codebook_size=32,
+                                     codebook_dim=4))
+    init_like_flax(codec, torch.Generator().manual_seed(4))
+    with torch.no_grad():  # Snake α away from 1, so that each channel's own α counts
+        for name, p in codec.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(len(name)))
+    return codec.eval()
+
+
+def test_codec_snake_runs_kernel_1_and_matches_cpu(cuda):
+    """The Amphion codec's Snake layers launch kernel 1 on the card (one per
+    activation: 2 strides x 7 + 1 = 15 a pass) and the codec matches its
+    CPU run (plain Snake): codes equal, the length-masked decode within
+    1e-4."""
+    from amphion_tpu_torch.ops.kernels.snake import SNAKE
+
+    cpu = _tiny_codec()
+    card = _tiny_codec().to(cuda)
+    audio = torch.randn((2, 400), generator=torch.Generator().manual_seed(5)) * 0.3
+    n = SNAKE.launches
+    codes = card.encode(audio.to(cuda))
+    torch.cuda.synchronize()
+    assert SNAKE.launches == n + 2 * 7 + 1  # per stride 3 units x 2 + 1, and a final one
+    assert torch.equal(codes.cpu(), cpu.encode(audio))
+    lens = torch.tensor([40, 23])
+    n = SNAKE.launches
+    wav = card.decode_codes(codes, lens.to(cuda))
+    torch.cuda.synchronize()
+    assert SNAKE.launches == n + 15
+    ref = cpu.decode_codes(codes.cpu(), lens)
+    assert wav.shape == ref.shape == (2, 400)
+    assert (wav.cpu() - ref).abs().max().item() <= 1e-4
+
+
+def test_maskgct_batch_card_matches_cpu(cuda):
+    """A small MaskGCT batch (T2S, S2A on float conditioning, the codec
+    decode) on the card in float32 against the CPU, with the same injected
+    draws: tokens equal, waveforms within 1e-4; every backbone pass runs
+    kernel 6 (one launch per layer and pass)."""
+    import numpy as np
+
+    from amphion_tpu_torch.models.tts.maskgct import ragged_sampling as rs
+    from amphion_tpu_torch.models.tts.maskgct.maskgct import (
+        MaskGCTS2A, MaskGCTT2S, S2AConfig, T2SConfig)
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    g = torch.Generator().manual_seed(6)
+    t2s = init_like_flax(MaskGCTT2S(T2SConfig(hidden=128, num_layers=2, num_heads=2,
+                                              codebook_size=64, phone_vocab=40)), g).eval()
+    s2a = init_like_flax(MaskGCTS2A(S2AConfig(hidden=128, num_layers=2, num_heads=2,
+                                              codebook_size=32, num_quantizers=3,
+                                              semantic_dim=24), False, True), g).eval()
+    codec = _tiny_codec()
+    rng = np.random.default_rng(7)
+    b, lp, lph, tm = 3, 12, 16, 24
+    inputs = dict(prompt=rng.integers(0, 64, (b, lp)), plen=[12, 7, 10],
+                  phone=rng.integers(1, 40, (b, lph)), phlen=[16, 9, 13],
+                  tlen=[24, 17, 20], pac=rng.integers(0, 32, (b, 3, lp)),
+                  sem=rng.standard_normal((b, lp + tm, 24)).astype(np.float32))
+    t2s_draws = [rng.gumbel(size=(b, tm, 64) if i % 2 == 0 else (b, tm)).astype(np.float32)
+                 for i in range(2 * 4)]
+    s2a_draws = [rng.gumbel(size=(b, tm, 32) if i % 2 == 0 else (b, tm)).astype(np.float32)
+                 for i in range(2 * (3 + 2))]
+    out = {}
+    for dev in ("cpu", cuda):
+        t2s.to(dev), s2a.to(dev), codec.to(dev)
+
+        def L(k):
+            return torch.as_tensor(np.asarray(inputs[k])).long().to(dev)
+        n6 = FLASH.launches
+        sem = rs.t2s_sample_ragged(t2s, L("prompt"), L("plen"), L("phone"), L("phlen"),
+                                   L("tlen"), [None] * b, tm, n_steps=4, compute_dtype="float32",
+                                   gumbel=iter(t2s_draws))
+        codes = rs.s2a_sample_ragged(s2a, torch.as_tensor(inputs["sem"]).to(dev), L("pac"),
+                                     L("plen"), L("tlen"), [None] * b, tm, first_layer_steps=3,
+                                     compute_dtype="float32", gumbel=iter(s2a_draws))
+        wav = codec.decode_codes(codes.transpose(0, 1), L("tlen"))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert FLASH.launches - n6 == 2 * 2 * (4 + 3 + 2)
+        out[str(dev)] = (sem.cpu(), codes.cpu(), wav.cpu())
+    for a, c in zip(out["cpu"][:2], out["cuda"][:2]):
+        assert torch.equal(a, c)
+    assert (out["cpu"][2] - out["cuda"][2]).abs().max().item() <= 1e-4
+
+
+def test_mel_kernel_under_inference_mode(cuda):
+    """The MaskGCT front end runs the mel under ``torch.inference_mode``: a
+    filterbank first asked for there, and an inference-mode filterbank
+    handed to the wrapper, both work."""
+    from amphion_tpu_torch.ops.kernels.mel import log_mel, log_mel_ref
+    from amphion_tpu_torch.ops.mel import _fbank
+
+    cfg = MelConfig(fmax=11025.0)  # a filterbank no other test has cached
+    y = torch.randn((1, 24000), generator=torch.Generator(cuda).manual_seed(3),
+                    device=cuda) * 0.3
+    with torch.inference_mode():
+        out = mel_spectrogram(y, cfg)
+        fb = _fbank(cfg, y.device).clone()
+        assert fb.is_inference()
+        again = log_mel(y, fb, cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
+    ref = mel_spectrogram_ref(y, cfg)
+    assert (out - ref).abs().max().item() <= 1e-3 and torch.equal(again, out)
+    assert (log_mel_ref(y, fb, cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
+            - ref).abs().max().item() == 0.0

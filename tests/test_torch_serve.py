@@ -183,8 +183,8 @@ def test_http_sine_round_trip():
         assert _get(url + "/api/stats")["completed"] == 1
     finally:
         _stop(httpd, th, backend)
-    with pytest.raises(NotImplementedError, match="A2"):
-        serve_cli.BUILDERS["maskgct"](args)
+    with pytest.raises(NotImplementedError, match="A3"):
+        serve_cli.BUILDERS["valle"](args)
 
 
 @pytest.fixture(scope="module")
