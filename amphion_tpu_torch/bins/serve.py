@@ -22,17 +22,24 @@ API (the schema of the JAX server):
         --config egs/tts/MaskGCT/exp_config.json [--exp_name maskgct] \
         [--semantic_ckpt DIR] [--codec_ckpt DIR] [--weights_dir DIR]
 
+    python -m amphion_tpu_torch.bins.serve --backend valle \
+        --config egs/tts/VALLE/exp_config.json --exp_name <exp> \
+        [--codec_ckpt DIR] [--compute_dtype int8] [--batcher window]
+
 Backends: ``maskgct`` (the default: zero-shot TTS, `MaskGCTService` over
 `bins/tts/inference.build_maskgct_pipeline`; requests carry ``prompt_wav``,
-``prompt_text``, ``target_text`` and optionally ``target_sec``), ``vevo``
+``prompt_text``, ``target_text`` and optionally ``target_sec``), ``valle``
+(zero-shot TTS over `bins/tts/inference.build_valle`: VALL-E from the port
+checkpoint at ``log_dir/<exp_name>/checkpoint``, the codec from
+``--codec_ckpt`` or random; requests carry ``prompt_wav``, ``prompt_text``
+and ``target_text``, the length follows the AR's EOS), ``vevo``
 (Vevo-Timbre or Vevo-Voice, `--vevo_mode`; the FM and AR restored from the
 port trainer's checkpoints, `bins/vc/inference.py`) and ``sine`` (a tone
 through the window batcher, to test the plumbing without checkpoints).
-``valle`` is not ported yet (ROADMAP A3) and raises. The vevo backend
-defaults to the continuous batcher (`serving/continuous_service.py`);
-``--batcher window`` restores the window batcher; maskgct and sine have no
-AR decode and always use the window batcher. The port adds ``--device``
-(default ``cuda``).
+The vevo and valle backends default to the continuous batcher
+(`serving/continuous_service.py`); ``--batcher window`` restores the window
+batcher; maskgct and sine have no AR decode and always use the window
+batcher. The port adds ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -230,10 +237,36 @@ def _build_maskgct_service(args) -> Backend:
     return Backend(synth, svc.stats, pipe.sample_rate, shutdown=svc.shutdown)
 
 
-def _not_ported(name: str, item: str):
-    def build(args):
-        raise NotImplementedError(f"the {name} backend is not ported yet (ROADMAP {item})")
-    return build
+def _build_valle_service(args) -> Backend:
+    """Batched zero-shot VALL-E over `bins/tts/inference.build_valle` (the
+    weights at ``log_dir/<exp_name>/checkpoint``, the codec's
+    ``--codec_ckpt``): the continuous engine on the AR stage by default,
+    ``--batcher window`` the window `VALLEService`."""
+    from amphion_tpu_torch.bins.tts.inference import build_valle
+    from amphion_tpu_torch.serving.service import VALLEService
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.logging import get_logger
+
+    cfg = load_config(args.config)
+    model, tok, g2p, symbols = build_valle(args, cfg, get_logger("serve"), device=args.device)
+    common = dict(len_step=args.len_step, max_phone_len=args.max_phone_len,
+                  max_prompt_len=args.max_prompt_len, max_new=args.max_new,
+                  compute_dtype=args.compute_dtype)
+    prewarm = None
+    if args.batcher == "continuous":
+        from amphion_tpu_torch.serving.continuous_service import ValleContinuousService
+
+        svc = ValleContinuousService(model, tok, g2p, symbols, slots=args.slots,
+                                     chunk=args.chunk, **common)
+        prewarm = svc.prewarm
+    else:
+        svc = VALLEService(model, tok, g2p, symbols, max_batch=args.max_batch,
+                           max_wait_ms=args.max_wait_ms, **common)
+
+    def synth(prompt_audio, prompt_text, target_text, target_sec, seed, src_audio=None):
+        return svc.synthesize(prompt_audio, prompt_text, target_text, seed=seed), tok.sample_rate
+
+    return Backend(synth, svc.stats, tok.sample_rate, prewarm, svc.shutdown)
 
 
 def make_handler(synth_fn, stats_fn, backend_name: str, input_sr: int = 24000):
@@ -299,7 +332,7 @@ def serve(synth_fn, stats_fn, backend_name="custom", port=7860, host="127.0.0.1"
 
 
 BUILDERS = {"sine": _build_sine_service, "vevo": _build_vevo_service,
-            "maskgct": _build_maskgct_service, "valle": _not_ported("valle", "A3")}
+            "maskgct": _build_maskgct_service, "valle": _build_valle_service}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -307,20 +340,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default="maskgct", choices=sorted(BUILDERS))
     ap.add_argument("--port", type=int, default=7860)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--config", help="experiment config (maskgct, vevo)")
+    ap.add_argument("--config", help="experiment config (maskgct, valle, vevo)")
     ap.add_argument("--exp_name", default="maskgct")
     ap.add_argument("--semantic_ckpt", default=None)
     ap.add_argument("--codec_ckpt", default=None)
     ap.add_argument("--weights_dir", default=None)
     ap.add_argument("--batcher", default="continuous", choices=["continuous", "window"],
-                    help="AR-backend dispatcher (vevo): 'continuous' (default) admits "
+                    help="AR-backend dispatcher (vevo, valle): 'continuous' (default) admits "
                          "requests into a live per-slot decode at chunk boundaries; "
                          "'window' is the static micro-batcher; maskgct and sine always "
                          "use it")
     ap.add_argument("--slots", type=int, default=4, help="continuous engine decode slots")
     ap.add_argument("--prewarm", action="store_true",
-                    help="walk the continuous engine's buckets and rungs and the FM tail "
-                         "before listening")
+                    help="walk the continuous engine's buckets and rungs and the tail "
+                         "(vevo: FM, valle: NAR and codec) before listening")
     ap.add_argument("--chunk", type=int, default=64,
                     help="continuous engine decode chunk (steps between admission points)")
     ap.add_argument("--max_batch", type=int, default=8)
@@ -329,7 +362,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max_prompt_len", type=int, default=512)
     ap.add_argument("--max_target_len", type=int, default=1024)
     ap.add_argument("--max_phone_len", type=int, default=512)
-    ap.add_argument("--max_new", type=int, default=768, help="AR decode budget (vevo)")
+    ap.add_argument("--max_new", type=int, default=768, help="AR decode budget (vevo, valle)")
     ap.add_argument("--vevo_mode", default="timbre", choices=["timbre", "voice"],
                     help="vevo product: timbre = FM re-render, voice = AR style rewrite + FM")
     ap.add_argument("--fm_steps", type=int, default=32)
@@ -337,7 +370,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=["float32", "bfloat16", "int8", "int4"],
                     help="AR and FM dtype (vevo; int8/int4 decode rows independently of "
-                         "their batch), T2S and S2A dtype (maskgct: float32 or bfloat16)")
+                         "their batch), AR and NAR dtype (valle; int8/int4 quantize the AR, "
+                         "the NAR runs bf16), T2S and S2A dtype (maskgct: float32 or "
+                         "bfloat16)")
     ap.add_argument("--ar_exp", default="", help="vevo AR trainer exp_name")
     ap.add_argument("--fm_exp", default="", help="vevo FM trainer exp_name")
     ap.add_argument("--content_ckpt", default="")
@@ -357,7 +392,7 @@ def main(argv=None) -> None:
     backend = BUILDERS[args.backend](args)
     try:
         if args.prewarm and backend.prewarm is not None:
-            print("prewarming (every bucket pair, every rung, the FM tail)...")
+            print("prewarming (every bucket pair, every rung, the tail)...")
             backend.prewarm()
             print("prewarm done")
         httpd = serve(backend.synth, backend.stats, args.backend, args.port, args.host,

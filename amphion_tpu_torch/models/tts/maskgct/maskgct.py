@@ -5,8 +5,10 @@ Two stages: T2S (text → semantic tokens, `MaskGCTT2S`, a DiffLlamaPrefix
 backbone with the phone embeddings as its prefix) and S2A (semantic →
 acoustic RVQ codes, `MaskGCTS2A`, a DiffLlama backbone conditioned per
 token). Both run iterative mask-predict through the ragged samplers of
-`ragged_sampling.py`; the training losses and the fixed-shape samplers
-(``t2s_sample``/``s2a_sample``) are not ported.
+`ragged_sampling.py`: the served batches, and one request
+(`MaskGCTPipeline.__call__`) as a batch of one, where they give the tokens
+of JAX's fixed-shape ``t2s_sample``/``s2a_sample``, which are not ported
+on their own. The training losses are not ported.
 
 Parameter names are the Flax scopes (``phone_emb``, ``cond_emb``,
 ``mask_emb``, ``tok_emb_{q}``, ``head_{q}``, ``layer_emb``, ``sem_proj``,

@@ -131,6 +131,11 @@ class ARTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
+    @property
+    def decode_vocab(self) -> int:
+        """The width of the decode's logits."""
+        return self.cfg.total_vocab
+
     def head(self, h):
         """``lm_head``; in the quantized decode through the row-invariant
         bf16 GEMV (the head's weights are bf16 there)."""
@@ -246,21 +251,24 @@ def prepare_for_decode(model: ARTransformer, compute_dtype: str) -> ARTransforme
     return load_quantized(qmodel, model, qcfg.llama())
 
 
-def _check(model: ARTransformer, compute_dtype: str) -> torch.dtype:
+def check_decode_dtype(model, compute_dtype: str) -> torch.dtype:
+    """The activation dtype of a decode in ``compute_dtype``; raises unless
+    ``model`` (an AR model with a ``decoder``: `ARTransformer`, VALL-E) was
+    prepared for it."""
     if compute_dtype not in DECODE_DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype!r} not in {tuple(DECODE_DTYPES)}")
     quant = compute_dtype if compute_dtype in ("int8", "int4") else "none"
     dt = DECODE_DTYPES[compute_dtype]
-    if model.cfg.decode_quant != quant or model.embed_tokens.weight.dtype != dt:
+    have = model.decoder.final_norm.scale.dtype
+    if model.cfg.decode_quant != quant or have != dt:
         raise ValueError(
-            f"the AR model holds {model.cfg.decode_quant} projections and "
-            f"{model.embed_tokens.weight.dtype} weights but compute_dtype is "
-            f"{compute_dtype}: prepare it once with prepare_for_decode")
+            f"the AR model holds {model.cfg.decode_quant} projections and {have} weights "
+            f"but compute_dtype is {compute_dtype}: prepare it once with prepare_for_decode")
     return dt
 
 
-def _decode_loop(model, caches, logits, start: int, max_new: int, generators,
-                 temperature, top_k, top_p, kv_valid=None):
+def decode_loop(model, caches, logits, start: int, max_new: int, generators,
+                temperature, top_k, top_p, kv_valid=None):
     eos = model.cfg.eos_id
     b = logits.shape[0]
     dev = logits.device
@@ -287,7 +295,7 @@ def ar_transformer_generate(model: ARTransformer, input_tokens: torch.Tensor,
     """KV-cache sampled decode of a (B, Li) batch of equal-length inputs,
     one ``generator`` for the batch → (tokens (B, max_new) raw output ids,
     0 from a row's EOS on; lengths (B,))."""
-    dt = _check(model, compute_dtype)
+    dt = check_decode_dtype(model, compute_dtype)
     b, li = input_tokens.shape
     plen = 0 if prompt_output_tokens is None else prompt_output_tokens.shape[1]
     total = li + 3 + plen + max_new
@@ -295,8 +303,8 @@ def ar_transformer_generate(model: ARTransformer, input_tokens: torch.Tensor,
     logits, caches, pref_len = model.prefill(input_tokens.to(model.device), caches,
                                              None if prompt_output_tokens is None
                                              else prompt_output_tokens.to(model.device))
-    return _decode_loop(model, caches, logits, pref_len, max_new, generator,
-                        temperature, top_k, top_p)
+    return decode_loop(model, caches, logits, pref_len, max_new, generator,
+                       temperature, top_k, top_p)
 
 
 @torch.inference_mode()
@@ -317,7 +325,7 @@ def ar_transformer_generate_ragged(model: ARTransformer, input_tokens: torch.Ten
     engine's solo path gives its own, since on the card the attention's
     sums, and with them the bits of a request's logits, depend on the
     cache's length."""
-    dt = _check(model, compute_dtype)
+    dt = check_decode_dtype(model, compute_dtype)
     dev = model.device
     b, li = input_tokens.shape
     input_len = input_len.to(dev, torch.long)
@@ -333,5 +341,5 @@ def ar_transformer_generate_ragged(model: ARTransformer, input_tokens: torch.Ten
     logits, caches, _ = model.prefill_ragged(
         input_tokens.to(dev), input_len, caches, kv_valid, prompt_output_tokens,
         prompt_output_len)
-    return _decode_loop(model, caches, logits, l0, max_new, generators, temperature,
-                        top_k, top_p, kv_valid)
+    return decode_loop(model, caches, logits, l0, max_new, generators, temperature,
+                       top_k, top_p, kv_valid)

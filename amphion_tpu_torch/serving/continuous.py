@@ -46,7 +46,10 @@ on the CPU, and on the card under int8/int4 at rungs of up to 8 rows (the
 projections' GEMV path, the row-invariant `lm_head`, norms and attention
 products); under float32/bf16 on the card cuBLAS products are not
 row-invariant, nor are rungs past 8 rows (the projections' GEMM path).
-`ContinuousValleBatcher` (VALL-E) is not ported.
+
+`ContinuousValleBatcher` runs VALL-E's AR stage on the same engine: only
+submission and admission differ (a ``[pad | phones_i | prompt_i]`` window,
+no extra tokens).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from amphion_tpu_torch.models.vc.ar_transformer import ARTransformer, _check
+from amphion_tpu_torch.models.vc.ar_transformer import check_decode_dtype
 from amphion_tpu_torch.ops.kernels._build import LaunchTape
 from amphion_tpu_torch.ops.sampling import sample_logits
 
@@ -85,26 +88,32 @@ def _ids(x) -> torch.Tensor:
 
 
 class ContinuousARBatcher:
-    """Slot-based continuous batching over a prepared `ARTransformer`.
+    """Slot-based continuous batching over a prepared AR model: the Vevo
+    `ARTransformer` here, VALL-E in `ContinuousValleBatcher`. The engine
+    calls the model's decode interface only: ``decoder.init_cache``,
+    ``step``, ``cfg.eos_id``, ``decode_vocab``, ``device``, and, at
+    admission, its prefill (`_prefill`).
 
     Synchronous driver: `submit()` enqueues, `step_chunk()` admits, decodes
     one chunk and returns the requests finished in it, `run()` loops until
     drained. One thread drives it (`serving/continuous_service.EngineDriver`).
     """
 
-    def __init__(self, model: ARTransformer, *, slots: int = 4, capacity: int | None = None,
+    WINDOW_EXTRA = 3  # the packed window's tokens beyond its buckets (IN_BOS, IN_EOS, OUT_BOS)
+
+    def __init__(self, model, *, slots: int = 4, capacity: int | None = None,
                  chunk: int = 16, buckets: tuple[int, ...] = (64, 128, 256),
                  out_buckets: tuple[int, ...] = (), max_new: int = 256,
                  temperature: float = 1.0, top_k: int = 40, top_p: float = 1.0,
                  compute_dtype: str = "bfloat16", graphs: bool | None = None):
-        dt = _check(model, compute_dtype)  # the model is prepared for this dtype
+        dt = check_decode_dtype(model, compute_dtype)  # the model is prepared for it
         self.model, self.dev = model, model.device
         self.S, self.chunk = slots, chunk
         self.buckets = tuple(sorted(buckets))
         self.out_buckets = tuple(sorted(out_buckets))
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self.eos = model.cfg.eos_id
-        self.base = (self.buckets[-1] + 3
+        self.base = (self.buckets[-1] + self.WINDOW_EXTRA
                      + (self.out_buckets[-1] if self.out_buckets else 0))
         self.capacity = max(capacity or 0, self.base + max_new + chunk)
         if self.capacity > model.cfg.max_position:
@@ -122,7 +131,7 @@ class ContinuousARBatcher:
             self.kv_valid = torch.zeros((slots, self.capacity), dtype=torch.bool,
                                         device=self.dev)
             self.kv_valid[:, 0] = True
-            self.logits = torch.zeros((slots, model.cfg.total_vocab), device=self.dev)
+            self.logits = torch.zeros((slots, model.decode_vocab), device=self.dev)
             self.done = torch.ones((slots,), dtype=torch.bool, device=self.dev)  # freeze flags
             self.cur = torch.ones((slots,), dtype=torch.long, device=self.dev)  # write cursors
             # the chunk's outputs, written at the step index `step_idx`
@@ -214,7 +223,7 @@ class ContinuousARBatcher:
         prompt (Vevo-Voice). Raises now, not at admission, for a prompt
         longer than the buckets or a window that overflows the capacity."""
         content = _ids(content)
-        window = self._bucket(len(content)) + 3
+        window = self._bucket(len(content)) + self.WINDOW_EXTRA
         po = None if prompt_output is None else _ids(prompt_output)
         if po is not None:
             if not self.out_buckets:
@@ -249,6 +258,19 @@ class ContinuousARBatcher:
     def _admit(self, slot: int, req: _Request) -> None:
         """Prefill the request right-aligned into row ``slot``; its cursor
         becomes the window's end ``l0`` and its generator is reseeded."""
+        l0, row_valid, logits = self._prefill(slot, req)
+        self.kv_valid[slot] = row_valid[0]
+        self.logits[slot] = logits[0]
+        self.done[slot] = False
+        self.cur[slot] = l0
+        self.gens[slot].manual_seed(req.seed)
+        req.admit_t = time.perf_counter()
+        self.slots[slot] = _Slot(req=req)
+
+    def _prefill(self, slot: int, req: _Request):
+        """The request's packed window prefilled into row ``slot`` (a 1-row
+        view of the cache, written in place) → (window end ``l0``, the row's
+        (1, capacity) validity, its (1, V) logits)."""
         dev = self.dev
         n = len(req.content)
         lb = self._bucket(n)
@@ -268,13 +290,7 @@ class ContinuousARBatcher:
         logits, _, _ = self.model.prefill_ragged(
             buf.to(dev), torch.tensor([n], device=dev), rows, row_valid,
             prompt_output_tokens=po, prompt_output_len=polen, cache_index=0)
-        self.kv_valid[slot] = row_valid[0]
-        self.logits[slot] = logits[0]
-        self.done[slot] = False
-        self.cur[slot] = l0
-        self.gens[slot].manual_seed(req.seed)
-        req.admit_t = time.perf_counter()
-        self.slots[slot] = _Slot(req=req)
+        return l0, row_valid, logits
 
     def _retire(self, idx: int, n_keep: int) -> None:
         s = self.slots[idx]
@@ -369,3 +385,51 @@ class ContinuousARBatcher:
                 "last_rung": self.last_rung, "chunks": self.chunks,
                 "cursors": self.cur.tolist(), "graphs": self.graphs,
                 "p50_s": pct(50), "p95_s": pct(95), "p99_s": pct(99)}
+
+
+class ContinuousValleBatcher(ContinuousARBatcher):
+    """Continuous batching over VALL-E's AR (codebook-0) stage, a model
+    prepared by `models/tts/valle/valle.prepare_for_decode`.
+
+    The base engine's step, rung graphs, per-slot generators and compaction
+    run unchanged; a request is (phones, prompt codebook-0 tokens), and its
+    window the right-aligned ``[pad | phones_i | prompt_i]`` of
+    `VALLE.ar_prefill_ragged`, phones on ``phone_buckets`` and the prompt
+    on ``prompt_buckets``. A slot's capacity is ``phone_buckets[-1] +
+    prompt_buckets[-1] + max_new + chunk``; a request's tokens equal its
+    `ar_generate_ragged` at that cache capacity, under the base engine's
+    conditions. The NAR and the codec decode run outside the engine, per
+    finished request (`serving/continuous_service.ValleContinuousService`)."""
+
+    WINDOW_EXTRA = 0
+
+    def __init__(self, model, *, slots: int = 4, capacity: int | None = None,
+                 chunk: int = 16, phone_buckets: tuple[int, ...] = (64, 128, 256),
+                 prompt_buckets: tuple[int, ...] = (128, 256), max_new: int = 768,
+                 temperature: float = 1.0, top_k: int = 50, top_p: float = 1.0,
+                 compute_dtype: str = "bfloat16", graphs: bool | None = None):
+        super().__init__(model, slots=slots, capacity=capacity, chunk=chunk,
+                         buckets=phone_buckets, out_buckets=prompt_buckets, max_new=max_new,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         compute_dtype=compute_dtype, graphs=graphs)
+
+    def submit(self, phones, prompt_tokens, seed: int, max_new: int | None = None) -> int:
+        """Enqueue (phones, codebook-0 prompt tokens); ``seed`` seeds the
+        generator its tokens are drawn from."""
+        return super().submit(phones, seed, max_new=max_new, prompt_output=prompt_tokens)
+
+    def _prefill(self, slot: int, req: _Request):
+        dev = self.dev
+        n, m = len(req.content), len(req.prompt_output)
+        lb, lo = self._bucket(n), self._bucket(m, self.out_buckets)
+        phones = torch.zeros((1, lb), dtype=torch.long)
+        phones[0, :n] = req.content
+        prompt = torch.zeros((1, lo), dtype=torch.long)
+        prompt[0, :m] = req.prompt_output
+        l0 = lb + lo
+        row_valid = torch.arange(self.capacity, device=dev)[None, :] >= l0 - (n + m)
+        rows = [tuple(t[slot:slot + 1] for t in c) for c in self.caches]
+        logits, _ = self.model.ar_prefill_ragged(
+            phones.to(dev), torch.tensor([n], device=dev), prompt.to(dev),
+            torch.tensor([m], device=dev), rows, row_valid)
+        return l0, row_valid, logits

@@ -1,7 +1,8 @@
-"""Continuous-batching Vevo serving (port of
+"""Continuous-batching serving of the AR backends (port of
 `amphion_tpu/serving/continuous_service.py`: `EngineDriver`,
-`VevoContinuousService`). `bins/serve.py --batcher continuous`, the default
-for the vevo backend, builds it instead of the window `VevoService`.
+`VevoContinuousService`, `ValleContinuousService`). `bins/serve.py
+--batcher continuous`, the default for the vevo and valle backends, builds
+them instead of the window `VevoService` and `VALLEService`.
 
 - `EngineDriver` owns a continuous engine (`serving/continuous.py`) on one
   background thread and offers a blocking `submit_wait` that any number of
@@ -12,6 +13,9 @@ for the vevo backend, builds it instead of the window `VevoService`.
   for the AR stage, and the flow matching and Vocos run per finished
   request (`_fm_tail`), with the generators of the window path, so a
   request's tokens and waveform are those the window service gives it.
+- `ValleContinuousService` does the same for VALL-E: the engine
+  (`ContinuousValleBatcher`) runs the AR stage, and the greedy NAR and the
+  codec decode run per finished request at the window service's buckets.
 - The solo path: when the engine is idle, one request is pending and the
   service has no other request in flight (``solo_gate``), the driver runs
   the request's one-shot ragged decode instead. It declines (returns
@@ -29,11 +33,14 @@ import time
 import numpy as np
 import torch
 
+from amphion_tpu_torch.models.tts.valle.valle import ar_generate_ragged
 from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
-from amphion_tpu_torch.serving.continuous import ContinuousARBatcher
+from amphion_tpu_torch.serving.continuous import ContinuousARBatcher, ContinuousValleBatcher
 from amphion_tpu_torch.serving.service import (
+    VALLEService,
     VevoService,
     _pad_to,
+    _ValleCoreRequest,
     _VevoCoreRequest,
     voice_generators,
 )
@@ -334,3 +341,100 @@ class VevoContinuousService(VevoService):
     def shutdown(self) -> None:
         if self.driver is not None:
             self.driver.shutdown()
+
+
+class ValleContinuousService(VALLEService):
+    """VALL-E serving with the continuous engine on the AR stage; the greedy
+    NAR and the codec decode run per finished request (`nar_tail`), each
+    request's tokens drawn from a generator seeded with its seed, as the
+    window service draws them. ``graphs`` is the engine's (None: CUDA
+    graphs on the card, eager on the CPU)."""
+
+    def __init__(self, model, tokenizer, g2p, symbol_table, *, slots: int = 4,
+                 chunk: int = 64, graphs: bool | None = None, **kw):
+        self.slots_n, self.chunk, self._graphs = slots, chunk, graphs
+        super().__init__(model, tokenizer, g2p, symbol_table, **kw)
+
+    def _init_dispatch(self, max_batch, max_wait_ms):
+        del max_batch, max_wait_ms  # the window batcher's settings
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        engine = ContinuousValleBatcher(
+            self.model, slots=self.slots_n, chunk=self.chunk,
+            phone_buckets=_ladder_tuple(self.len_step, self.max_phone_len),
+            prompt_buckets=_ladder_tuple(self.len_step, self.max_prompt_len),
+            max_new=self.max_new, temperature=self.temperature, top_k=self.top_k,
+            compute_dtype=self.compute_dtype, graphs=self._graphs)
+        self.driver = EngineDriver(engine, solo_fn=self._solo_decode,
+                                   solo_gate=lambda: self._inflight <= 1)
+
+    def solo_tokens(self, phones, prompt_tokens, seed: int) -> torch.Tensor:
+        """One request's one-shot ragged AR decode at the engine's buckets,
+        cache capacity and seed: the tokens the engine gives it."""
+        eng = self.driver.engine
+        dev = self.model.device
+        phones = torch.as_tensor(phones, dtype=torch.long)
+        prompt_tokens = torch.as_tensor(prompt_tokens, dtype=torch.long)
+        toks, n = ar_generate_ragged(
+            self.model, _pad_to(phones, eng._bucket(len(phones)))[None],
+            torch.tensor([len(phones)]),
+            _pad_to(prompt_tokens, eng._bucket(len(prompt_tokens), eng.out_buckets))[None],
+            torch.tensor([len(prompt_tokens)]), [torch.Generator(dev).manual_seed(int(seed))],
+            max_new=self.max_new, temperature=self.temperature, top_k=self.top_k,
+            compute_dtype=self.compute_dtype, capacity=eng.capacity)
+        return toks[0, :int(n[0])].cpu()
+
+    def _solo_decode(self, phones, prompt_tokens, seed, max_new=None):
+        """The driver's solo path: `solo_tokens`, or None (decline) when the
+        engine replays graphs or the request's cap is not the service's."""
+        if self.driver.engine.graphs or (max_new or self.max_new) != self.max_new:
+            return None
+        return self.solo_tokens(phones, prompt_tokens, seed)
+
+    def synthesize(self, prompt_audio, prompt_text: str, target_text: str,
+                   seed: int = 0) -> np.ndarray:
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            req = self._prepare_request(prompt_audio, prompt_text, target_text, seed)
+            toks0 = self.driver.submit_wait(req.phone_ids.cpu(), req.prompt_codes[0].cpu(),
+                                            seed, max_new=self.max_new)
+            return self.nar_tail(req, toks0)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def prewarm(self) -> None:
+        """Walk the engine's bucket surface before serving traffic: one
+        admission per (phone, prompt) bucket pair and a chunk, S at a time
+        (the solo path off), every rung (captured when the engine was
+        built), and the NAR and codec tail at the largest target bucket for
+        the smallest and largest (phone, prompt) pairs."""
+        eng = self.driver.engine
+        steps = min(eng.chunk, eng.default_max_new)
+        solo_was, self.driver.solo_enabled = self.driver.solo_enabled, False
+        try:
+            with cf.ThreadPoolExecutor(eng.S) as ex:
+                futs = [ex.submit(self.driver.submit_wait, np.zeros(lph, np.int64),
+                                  np.zeros(lp, np.int64), 0, max_new=steps)
+                        for lph in eng.buckets for lp in eng.out_buckets]
+                for f in futs:
+                    f.result()
+        finally:
+            self.driver.solo_enabled = solo_was
+        self.driver.prewarm_rungs(lambda: (np.zeros(eng.buckets[0], np.int64),
+                                           np.zeros(eng.out_buckets[0], np.int64), 0))
+        dev = self.model.device
+        q = self.model.cfg.num_quantizers
+        toks = torch.zeros(self.max_new, dtype=torch.long)
+        for lph, lp in {(eng.buckets[0], eng.out_buckets[0]),
+                        (eng.buckets[-1], eng.out_buckets[-1])}:
+            req = _ValleCoreRequest(torch.zeros(lph, dtype=torch.long, device=dev),
+                                    torch.zeros((q, lp), dtype=torch.long, device=dev), 0)
+            self.nar_tail(req, toks)
+
+    def stats(self) -> dict:
+        return self.driver.stats()
+
+    def shutdown(self) -> None:
+        self.driver.shutdown()

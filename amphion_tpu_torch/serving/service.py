@@ -1,7 +1,7 @@
-"""Batched serving (port of `MaskGCTService` and `VevoService`,
-`amphion_tpu/serving/service.py:74-215` and `:328-510`, the window
-batcher). `MaskGCTService` is described in its class; the rest of this
-text is about Vevo.
+"""Batched serving (port of `MaskGCTService`, `VALLEService` and
+`VevoService`, `amphion_tpu/serving/service.py:74-215`, `:212-318` and
+`:328-510`, the window batcher). `MaskGCTService` and `VALLEService` are
+described in their classes; the rest of this text is about Vevo.
 
 Concurrent `synthesize` calls run their front end (mel, tokens, the prompt
 mel) in the caller's thread, one at a time, and are coalesced by
@@ -26,8 +26,9 @@ float32/bf16 its cuBLAS products are not, and the decode runs
 when ``max_batch`` exceeds 8 (the projections' GEMM path, whose rows do not
 depend on their number but differ from the GEMV's).
 
-`serving/continuous_service.VevoContinuousService` replaces the dispatch
-(`_init_dispatch`) and reuses the front end and the FM tail.
+`serving/continuous_service.VevoContinuousService` and
+`ValleContinuousService` replace the dispatch (`_init_dispatch`) and reuse
+the front end and the tail.
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ from amphion_tpu_torch.models.tts.maskgct.ragged_sampling import (
     pack_prefix_target,
     s2a_sample_ragged,
     t2s_sample_ragged,
+)
+from amphion_tpu_torch.models.tts.valle.valle import (
+    nar_generate_ragged,
+    prepare_for_decode,
+    valle_generate_ragged,
 )
 from amphion_tpu_torch.models.vc.ar_transformer import ar_transformer_generate_ragged
 from amphion_tpu_torch.models.vc.flow_matching_transformer import fmt_inference_ragged
@@ -187,6 +193,128 @@ class MaskGCTService:
         samples_per_frame = wav.shape[-1] / t_max
         return [wav[i, : int(round(r.target_len * samples_per_frame))]
                 for i, r in enumerate(reqs)]
+
+
+@dataclass
+class _ValleCoreRequest:
+    phone_ids: torch.Tensor  # (Lph,) int
+    prompt_codes: torch.Tensor  # (Q, Lp) int
+    seed: int
+
+
+class VALLEService:
+    """Thread-safe batched zero-shot VALL-E synthesis: AR, NAR and the codec
+    decode.
+
+    Concurrent `synthesize` calls run their front end (the prompt padded to
+    a 0.5 s grid, g2p of ``prompt_text + " " + target_text`` cut to
+    ``max_phone_len``, the prompt's codec codes cut to ``max_prompt_len``)
+    in the caller's thread, one at a time, and are coalesced by
+    `MicroBatcher` into batches of one (phone, prompt) bucket on ladders of
+    ``len_step``. A batch runs `valle_generate_ragged` (the AR right-aligned,
+    ``max_new`` steps; the NAR compact, greedy) and one length-masked codec
+    decode; each request is cut to its own ``gen_len`` frames (at least
+    one). Each request draws from a ``torch.Generator`` seeded with its
+    seed, so its tokens do not depend on its company wherever the decode
+    step's arithmetic does not depend on the batch's rows (float32 on the
+    CPU; int8/int4 on the card up to 8 rows; not bf16 cuBLAS products).
+
+    ``model`` is prepared for ``compute_dtype`` here
+    (`valle.prepare_for_decode`: float32/bf16 cast it in place)."""
+
+    def __init__(self, model, tokenizer, g2p, symbol_table, max_batch: int = 8,
+                 max_wait_ms: float = 50.0, len_step: int = 64, max_phone_len: int = 256,
+                 max_prompt_len: int = 512, max_new: int = 768, temperature: float = 1.0,
+                 top_k: int = 50, compute_dtype: str = "bfloat16",
+                 audio_grid_s: float = 0.5):
+        self.model = prepare_for_decode(model, compute_dtype)
+        self.tokenizer = tokenizer  # utils/tokenizer.AudioTokenizer
+        self.g2p, self.symbol_table = g2p, symbol_table
+        self.audio_grid_s = audio_grid_s
+        self.len_step = len_step
+        self.max_phone_len = max_phone_len
+        self.max_prompt_len = max_prompt_len
+        self.max_new = max_new
+        self.temperature, self.top_k = temperature, top_k
+        self.compute_dtype = compute_dtype
+        self._frontend_lock = threading.Lock()
+        self._init_dispatch(max_batch, max_wait_ms)
+
+    def _init_dispatch(self, max_batch, max_wait_ms):
+        self.batcher = MicroBatcher(self._run_batch, self._bucket_of, max_batch=max_batch,
+                                    max_wait_ms=max_wait_ms)
+
+    def _bucket_of(self, req: _ValleCoreRequest):
+        return (bucket_ladder(len(req.phone_ids), self.len_step, self.max_phone_len),
+                bucket_ladder(req.prompt_codes.shape[1], self.len_step, self.max_prompt_len))
+
+    def synthesize(self, prompt_audio, prompt_text: str, target_text: str,
+                   seed: int = 0) -> np.ndarray:
+        """Blocking single request; batches with concurrent callers. Returns
+        the waveform as float32 numpy."""
+        return self.batcher(self._prepare_request(prompt_audio, prompt_text, target_text,
+                                                  seed))
+
+    @torch.inference_mode()
+    def _prepare_request(self, prompt_audio, prompt_text, target_text,
+                         seed) -> _ValleCoreRequest:
+        tok = self.tokenizer
+        audio = prompt_audio if torch.is_tensor(prompt_audio) else torch.from_numpy(
+            np.asarray(prompt_audio, np.float32))
+        audio = _pad_audio_grid(audio.to(tok.device, torch.float32), tok.sample_rate,
+                                self.audio_grid_s)
+        with self._frontend_lock:
+            ids = self.g2p.to_ids(prompt_text + " " + target_text, self.symbol_table)
+            codes = tok.encode(audio)[0]  # (Q, Lp)
+        phone_ids = torch.tensor(ids, dtype=torch.long, device=codes.device)
+        return _ValleCoreRequest(phone_ids[: self.max_phone_len],
+                                 codes[:, : self.max_prompt_len], seed)
+
+    def stats(self) -> dict:
+        return self.batcher.stats.snapshot()
+
+    def shutdown(self) -> None:
+        self.batcher.shutdown()
+
+    def _decode(self, codes: torch.Tensor, n_gen: list[int]) -> list[np.ndarray]:
+        """Codes (B, Q, T) of ``n_gen`` generated frames each → the
+        waveforms, each cut to ``max(n, 1)`` frames."""
+        lens = [max(n, 1) for n in n_gen]
+        wav = self.tokenizer.decode(codes, torch.tensor(lens)).float().cpu().numpy()
+        spf = wav.shape[-1] / codes.shape[-1]
+        return [wav[i, : int(round(n * spf))] for i, n in enumerate(lens)]
+
+    @torch.inference_mode()
+    def _run_batch(self, bucket, reqs: list[_ValleCoreRequest]) -> list[np.ndarray]:
+        lph, lp = bucket
+        dev = self.model.device
+        phones = torch.stack([_pad_to(r.phone_ids, lph) for r in reqs])
+        prompts = torch.stack([_pad_to(r.prompt_codes.T, lp).T for r in reqs])
+        codes, gen_len = valle_generate_ragged(
+            self.model, phones, torch.tensor([len(r.phone_ids) for r in reqs], device=dev),
+            prompts, torch.tensor([r.prompt_codes.shape[1] for r in reqs], device=dev),
+            [torch.Generator(dev).manual_seed(r.seed) for r in reqs], max_new=self.max_new,
+            temperature=self.temperature, top_k=self.top_k, compute_dtype=self.compute_dtype)
+        return self._decode(codes, gen_len.tolist())
+
+    @torch.inference_mode()
+    def nar_tail(self, req: _ValleCoreRequest, toks0: torch.Tensor) -> np.ndarray:
+        """One request's NAR and codec decode given its AR tokens, at the
+        buckets of its phones, its prompt and its ``max(n, 1)`` frames (the
+        NAR sees the true count, 0 after an immediate EOS) → its waveform."""
+        dev = self.model.device
+        n_gen = len(toks0)
+        lph = bucket_ladder(len(req.phone_ids), self.len_step, self.max_phone_len)
+        lp = bucket_ladder(req.prompt_codes.shape[1], self.len_step, self.max_prompt_len)
+        lt = bucket_ladder(max(n_gen, 1), self.len_step, self.max_new)
+        codes = nar_generate_ragged(
+            self.model, _pad_to(req.phone_ids, lph)[None],
+            torch.tensor([len(req.phone_ids)], device=dev),
+            _pad_to(toks0.to(dev), lt)[None], torch.tensor([n_gen], device=dev),
+            _pad_to(req.prompt_codes.T, lp).T[None],
+            torch.tensor([req.prompt_codes.shape[1]], device=dev),
+            compute_dtype=self.compute_dtype)
+        return self._decode(codes, [n_gen])[0]
 
 
 @dataclass

@@ -50,7 +50,20 @@ at the full width of ``config/vevo.json`` with random weights from
   request 0 in the batch (reported), a profiled batch, a small float32
   batch on the card against the CPU with the same injected draws, and
   `bins/serve.py --backend maskgct` answering six requests from
-  `serving/loadgen.py`;
+  `serving/loadgen.py`, and `bins/tts/inference.py` in its MaskGCT mode;
+- VALL-E zero-shot TTS as `bins/serve.py --backend valle` serves it, at the
+  width of ``egs/tts/VALLE/exp_config.json`` (1024 x 12 layers, FFN 2816,
+  8 x 1 024 codes; 384 AR steps, the CLI's 768 cut for the run's time): port
+  checkpoints from random weights, the model and codec built by
+  `bins/tts/inference.build_valle`; the int8 continuous engine (graphs)
+  with four requests a chunk apart, each equal to its solo decode and to
+  an eager engine's (launches #4 48, `rms_norm` 25 and `bf16_gemv` 1 an AR
+  pass), the bf16 window `VALLEService` on a batch of four (#6 84, #1 145,
+  `rms_norm` 25 a pass; request 0 alone reported), #6, #1, #4/#5 and the
+  1025-wide head GEMV on the paths' recorded inputs (K 1024 and 2816), a
+  64-step int4 solo decode, a small float32 VALL-E card vs CPU, `bins/
+  serve.py --backend valle` answering six requests at the CLI's defaults,
+  and `bins/tts/inference.py` in its VALLE mode;
 
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
@@ -68,9 +81,12 @@ paths gave it (by CUDA-graph replays, beside SDPA timed the same way for
 the flash kernels), and profiles a decode chunk of each engine, two steps
 of each trainer and one 10 s copy synthesis. Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--max-new 512]
+    python3 chip_smoke.py [--seed 0] [--max-new 384]
 
-Exits nonzero on any failure, and at once when there is no CUDA card. The
+``--max-new`` is the voice window batches' AR depth; the voice engine runs
+stop at ``ENGINE_MAX_NEW`` (256) steps and VALL-E's at ``VALLE_MAX_NEW``
+(384), cuts made for the run's time. Exits nonzero on any failure, and at
+once when there is no CUDA card. The
 last three lines of standard output are the ``{"kernels": [...]}`` timing
 line, then the card's name and power limit (``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``) on the line before
@@ -1174,6 +1190,9 @@ def padding_phase(v8: dict) -> dict:
 # -- the continuous engine: row invariance, CUDA graphs, the serve CLI -------------
 
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_STEP = 4, 64, 64  # bins/serve.py: --slots, --chunk, --len_step
+# the staggered engine runs of the voice pipeline (graph engine, eager engine
+# and four solo decodes a dtype): cut below --max-new for the run's time
+ENGINE_MAX_NEW = 256
 INVARIANT_ROWS = (1, 2, 4, 8)
 ENGINE_GROUPS = [("int8_gemv", ("gemv_kernel", "::Int8,")),
                  ("int4_gemv", ("gemv_kernel", "::Int4,")),
@@ -3195,11 +3214,52 @@ def maskgct_phase(seed: int, kernels: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         out["http"] = mg_http_phase(args, kernels, audio)
+        out["cli"] = mg_cli_check(path, root, audio[0])
     log(f"maskgct ({out['card']}): " + json.dumps(
         {k: v for k, v in out.items() if k not in ("profile",)}))
     out["rows"] = rows
     return out
 
+
+def mg_cli_check(path: str, root: str, audio: np.ndarray) -> dict:
+    """`bins/tts/inference.py` in MaskGCT mode as a user runs it (the CLI's
+    defaults: bf16 T2S and S2A, seed 0) on the phase's checkpoints: the wav
+    holds target_len codec frames of 240 samples, target_len the
+    proportional estimate the run's own pipeline gave the T2S."""
+    from amphion_tpu_torch.bins.tts import inference as tts_cli
+    from amphion_tpu_torch.data.audio_io import load_wav, save_wav
+    from amphion_tpu_torch.pipelines import maskgct_pipeline as pipe_mod
+
+    prompt = os.path.join(root, "prompt.wav")
+    save_wav(prompt, audio, SR)
+    lengths = []
+    real = pipe_mod.t2s_sample_ragged
+
+    def recording(model, prompt_tokens, *a, **kw):
+        lengths.append((int(prompt_tokens.shape[1]), int(a[5])))  # a[5]: t_max
+        return real(model, prompt_tokens, *a, **kw)
+    pipe_mod.t2s_sample_ragged = recording
+    out_wav = os.path.join(root, "maskgct_cli.wav")
+    ptext, ttext = MG_REQUESTS[0][1:3]
+    t0 = time.perf_counter()
+    try:
+        tts_cli.main(["--config", path, "--exp_name", "maskgct", "--semantic_ckpt",
+                      os.path.join(root, "semantic"), "--codec_ckpt", os.path.join(root, "codec"),
+                      "--prompt_audio", prompt, "--prompt_text", ptext, "--text", ttext,
+                      "--output_path", out_wav, "--device", DEV])
+    finally:
+        pipe_mod.t2s_sample_ragged = real
+    wall = time.perf_counter() - t0
+    wav, sr = load_wav(out_wav)
+    (lp, tl), = lengths
+    n_prompt, n_target = len(ptext), len(ttext)
+    want_tl = int(lp * (n_target / n_prompt)) + 1
+    check("maskgct CLI (bins/tts/inference.py, model_type MaskGCT): a 24 kHz wav of target_len "
+          "x 240 samples, target_len the proportional estimate",
+          sr == SR and tl == want_tl and len(wav) == tl * 240 and np.abs(wav).max() > 1e-3,
+          f"{len(wav)} samples at {sr} Hz; semantic prompt {lp} frames, target_len {tl} (want "
+          f"{want_tl}: {n_target} / {n_prompt} phones), {wall:.1f} s")
+    return {"wall_s": wall, "target_len": tl, "samples": len(wav)}
 
 def mg_http_phase(args, kernels: dict, audio: list) -> dict:
     """`bins/serve.py --backend maskgct` as a user starts it (the backend factory the
@@ -3327,10 +3387,761 @@ def mg_kernel_rows(flash_calls, snake_shapes: dict, launches: dict, flash_err: f
     return rows
 
 
+# -- VALL-E: bins/serve.py --backend valle and bins/tts/inference.py ----------------
+
+VALLE_CONFIG = "egs/tts/VALLE/exp_config.json"
+VALLE_LAYERS, VALLE_HIDDEN, VALLE_FFN, VALLE_VOCAB = 12, 1024, 2816, 1025  # config/valle.json
+VALLE_MAX_NEW = 384  # the AR's steps (the CLI's --max_new is 768; cut for the run's time)
+# (prompt text, target text): 65, 83, 109 and 118 phones (char G2P), one phone bucket (128)
+VALLE_TEXTS = [
+    ("the quick brown fox jumps", "over the lazy dog by the old river bank"),
+    ("she sells sea shells by the sea shore", "while the waves roll in under a pale grey sky"),
+    ("please call stella and ask her to bring these things",
+     "a bright morning light fell across the quiet harbor town"),
+    ("we walked along the beach until the sun went down",
+     "and music drifted from an open window on the second floor of the inn")]
+VALLE_ENGINE_SECONDS = (3.0, 3.5, 4.0, 4.5)  # prompts of the engine run: buckets 320-512
+VALLE_BATCH_SECONDS = (3.6, 3.7, 3.8, 4.0)  # the window batch: 400 frames, one bucket (448)
+VALLE_SEEDS = (201, 202, 203, 204)
+# worked out from the code beforehand: an AR pass (a prefill or a step) runs 12 layers x (2
+# RMSNorms + 4 quantized projections) + the final norm + the head; a NAR call 7 stages x 12
+# layers of kernel 6; a codec encode or decode 29 Snake activations
+VALLE_AR_NORMS, VALLE_AR_PROJ = 2 * VALLE_LAYERS + 1, 4 * VALLE_LAYERS  # 25, 48 a pass
+VALLE_NAR_FLASH = 7 * VALLE_LAYERS  # 84 a NAR call
+VALLE_GROUPS = [("flash_attn_fwd", ("flash_fwd",)), ("snake", ("snake",)),
+                ("rms_norm", ("rms_norm_kernel",)), ("int8_gemv", ("gemv_kernel", "::Int8,")),
+                ("bf16_gemv", ("gemv_kernel", "::Bf16,"))]
+
+
+def valle_write_checkpoints(root: str, seed: int) -> str:
+    """A config over `egs/tts/VALLE/exp_config.json` under ``root`` (full
+    width: 1024 x 12 layers, 16 heads, FFN 2816, 8 x 1024 codes), its char
+    symbol table, and port checkpoints from random weights of ``seed``:
+    VALL-E under ``log_dir/valle/checkpoint`` (the adaptive norms given a
+    random conditioning path, as a trained NAR has) and the Amphion codec
+    (`mg_codec_unsaturated`) under ``root/codec``."""
+    import types
+
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec
+    from amphion_tpu_torch.models.tts.valle.valle import VALLE, VALLEConfig
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+    from amphion_tpu_torch.bins.tts.inference import _codec_config
+    from amphion_tpu_torch.text.g2p import G2PModule
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    path = os.path.join(root, "valle.json")
+    with open(path, "w") as f:
+        json.dump({"base_config": os.path.abspath(VALLE_CONFIG), "dataset": ["smoke"],
+                   "log_dir": os.path.join(root, "ckpts"),
+                   "preprocess": {"processed_dir": os.path.join(root, "processed")}}, f)
+    cfg = load_config(path)
+    table = G2PModule("char").build_symbol_table([t for pair in VALLE_TEXTS for t in pair])
+    table.to_file(os.path.join(root, "processed", "smoke", "symbols.dict"))
+    m = cfg["model"]["valle"]
+    g = torch.Generator(DEV).manual_seed(seed)
+    with torch.device(DEV):
+        model = init_like_flax(VALLE(VALLEConfig(
+            num_phones=max(len(table) + 1, 64),
+            **{k: m[k] for k in ("audio_vocab", "num_quantizers", "hidden", "num_layers",
+                                 "num_heads", "max_position")})), g)
+        for name, prm in model.named_parameters():
+            if "to_weight.weight" in name:
+                prm.data.normal_(0.0, 0.02, generator=g)
+        codec = init_like_flax(AmphionCodec(_codec_config(cfg)), g)
+        mg_codec_unsaturated(codec, g)
+    for module, where in ((model, os.path.join(root, "ckpts", "valle", "checkpoint")),
+                          (codec, os.path.join(root, "codec"))):
+        state = types.SimpleNamespace(state_dict=lambda mod=module: {"model": mod.state_dict()})
+        CheckpointManager(where).save(state, 1, 0, 0.0)
+    return path
+
+
+class ValleProjRecorder(ProjRecorder):
+    """`ProjRecorder` on the quantized projections of VALL-E's AR, layers 0
+    and 11 (K = 1024 for qkv, o and gateup, 2816 for down)."""
+
+    def __init__(self, model):
+        self.seen, self.hooks = {}, []
+        for i in (0, VALLE_LAYERS - 1):
+            layer = getattr(model.ar, f"layer_{i}")
+            for label, mod in (("qkv", layer.attn.qkv_proj), ("o", layer.attn.o_proj),
+                               ("gateup", layer.mlp.gateup_proj), ("down", layer.mlp.down_proj)):
+                self.hooks.append(mod.register_forward_pre_hook(
+                    self._hook(f"ar layer_{i} {label}")))
+
+
+def valle_profile(fn) -> dict:
+    """``fn()`` under torch.profiler (device activity): wall, busy share and
+    device time by group (the port's kernels, library GEMMs, the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n = device_us_by_name(prof)
+    groups = dict.fromkeys([g for g, _ in VALLE_GROUPS] + ["gemm", "conv", "other"], 0.0)
+    for name, us in by_name.items():
+        grp = next((g for g, pats in VALLE_GROUPS if all(p in name for p in pats)), None)
+        low = name.lower()
+        if grp is None and any(t in low for t in ("conv", "implicit", "winograd", "cudnn")):
+            grp = "conv"
+        if grp is None:
+            grp = "gemm" if any(t in low for t in LIBRARY_GEMM) else "other"
+        groups[grp] += us / 1e6
+    busy = sum(groups.values())
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_records": n, "by_group_s": groups}
+
+
+def valle_serve(svc, audio) -> tuple[list, float]:
+    """Requests 0, 1, ... (one a prompt in ``audio``) at once, one thread
+    each → (waveforms, wall)."""
+    out = [None] * len(audio)
+
+    def one(i):
+        out[i] = svc.synthesize(audio[i], *VALLE_TEXTS[i], seed=VALLE_SEEDS[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(out))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(w is None for w in out):
+        raise SystemExit("valle: a request did not finish")
+    return out, time.perf_counter() - t0
+
+
+def valle_engine_phase(model, tok, g2p, symbols, kernels: dict, max_new: int) -> dict:
+    """(a) The int8 continuous engine (slots 4, chunk 64, the CLI's buckets):
+    the four requests (prompts 3.0-4.5 s, 65-118 phones) admitted a chunk
+    apart through the graph engine and an eager engine; each request's
+    codebook-0 tokens equal its solo ragged decode at the engine's capacity.
+    Launch counts against those worked out from the code; the projections'
+    and the head's inputs recorded on the eager engine for (d)."""
+    from amphion_tpu_torch.models.tts.valle import valle as valle_mod
+    from amphion_tpu_torch.serving.continuous import ContinuousValleBatcher
+    from amphion_tpu_torch.serving.continuous_service import ValleContinuousService
+
+    rng = np.random.default_rng(301)
+    audio = [synth_audio(rng, s) for s in VALLE_ENGINE_SECONDS]
+    t0 = time.perf_counter()
+    svc = ValleContinuousService(model, tok, g2p, symbols, slots=ENGINE_SLOTS,
+                                 chunk=ENGINE_CHUNK, len_step=ENGINE_STEP, max_phone_len=512,
+                                 max_prompt_len=512, max_new=max_new, compute_dtype="int8")
+    build_s = time.perf_counter() - t0
+    svc.driver.shutdown()  # the engine is driven chunk by chunk from here
+    eng = svc.driver.engine
+    reqs = [svc._prepare_request(a, *VALLE_TEXTS[i], VALLE_SEEDS[i]) for i, a in enumerate(audio)]
+    reqs = [(r.phone_ids.cpu(), r.prompt_codes[0].cpu(), r.seed) for r in reqs]
+    eager = ContinuousValleBatcher(svc.model, slots=ENGINE_SLOTS, chunk=ENGINE_CHUNK,
+                                   phone_buckets=eng.buckets, prompt_buckets=eng.out_buckets,
+                                   max_new=max_new, compute_dtype="int8", graphs=False)
+
+    def staggered(e):
+        rids, t0 = [], time.perf_counter()
+        for ph, pr, seed in reqs:
+            rids.append(e.submit(ph, pr, seed))
+            e.step_chunk()
+        done = e.run()
+        torch.cuda.synchronize()
+        return [done[r] for r in rids], time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    chunks0 = eng.chunks
+    toks_g, wall_g = staggered(eng)
+    launches = {name: k.launches for name, k in kernels.items()}
+    steps = (eng.chunks - chunks0) * ENGINE_CHUNK
+    rec = ValleProjRecorder(svc.model)
+    head = CallRecorder(valle_mod, "bf16_linear", lambda i, args: i % 97 == 0)
+    try:
+        chunks0 = eager.chunks
+        toks_e, wall_e = staggered(eager)
+        steps_e = (eager.chunks - chunks0) * ENGINE_CHUNK
+    finally:
+        rec.remove()
+        head.remove()
+    t0 = time.perf_counter()
+    solo = [svc.solo_tokens(ph, pr, seed) for ph, pr, seed in reqs]
+    solo_s = (time.perf_counter() - t0) / len(reqs)
+    lens = [len(t) for t in toks_g]
+    same_e = [torch.equal(a, b) for a, b in zip(toks_g, toks_e)]
+    same_s = [torch.equal(a, b) for a, b in zip(toks_g, solo)]
+    check("valle engine int8: each staggered request's codebook-0 tokens equal its solo "
+          "ragged decode at the engine's capacity, and the eager engine's",
+          all(same_s) and all(same_e) and min(lens) > 0,
+          f"solo {same_s}, eager {same_e}, lengths {lens} of {max_new}, capacity {eng.capacity}")
+    passes = steps + len(reqs)  # every step and one prefill a request
+    want = {name: 0 for name in launches}
+    want.update(int8_matmul=VALLE_AR_PROJ * passes, rms_norm=VALLE_AR_NORMS * passes,
+                bf16_gemv=passes)
+    check("valle engine int8: launches as worked out beforehand (48 #4, 25 RMSNorms and 1 "
+          "head GEMV an AR pass: 4 prefills + the steps, graph replays counted)",
+          launches == want, f"{launches} (want {want}, {steps} steps)")
+
+    def profiled_chunk():
+        for ph, pr, seed in reqs:
+            eng.submit(ph, pr, seed, max_new=3 * ENGINE_CHUNK)
+        eng.step_chunk()  # admissions and a first chunk
+        out = valle_profile(eng.step_chunk)
+        out["rows"] = eng.last_rung
+        out["ms_per_step"] = out["wall_s"] / ENGINE_CHUNK * 1e3
+        eng.run()
+        return out
+
+    perf = {"capacity": eng.capacity, "capture_s": eng.capture_s, "service_build_s": build_s,
+            "decode_steps": steps, "graph_wall_s": wall_g, "graph_steps_per_s": steps / wall_g,
+            "tokens_per_s": sum(lens) / wall_g, "eager_steps_per_s": steps_e / wall_e,
+            "solo_decode_s": solo_s, "launches": launches, "profiled_chunk": profiled_chunk()}
+    log(f"valle engine int8 ({nvidia_smi()}): " + json.dumps(perf))
+    return {"svc": svc, "perf": perf, "rec": rec, "head_calls": head.calls,
+            "reqs": reqs, "launches": launches}
+
+
+def valle_window_phase(model, tok, g2p, symbols, kernels: dict, max_new: int) -> dict:
+    """(b) The window `VALLEService` in bf16 (the CLI's dtype), one batch of
+    four in one bucket: a warm-up batch, then a counted batch with kernel 6's
+    and kernel 1's calls recorded at their wrappers, request 0 alone
+    (tokens agreeing with request 0 in the batch: reported), a profiled
+    rerun. Casts ``model`` to bf16 in place."""
+    from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+    from amphion_tpu_torch.serving import service as service_mod
+    from amphion_tpu_torch.serving.service import VALLEService
+
+    rng = np.random.default_rng(302)
+    audio = [synth_audio(rng, s) for s in VALLE_BATCH_SECONDS]
+    kw = dict(len_step=ENGINE_STEP, max_phone_len=512, max_prompt_len=512, max_new=max_new,
+              compute_dtype="bfloat16")
+    svc = VALLEService(model, tok, g2p, symbols, max_batch=4, max_wait_ms=10000.0, **kw)
+    solo = VALLEService(model, tok, g2p, symbols, max_batch=4, max_wait_ms=1.0, **kw)
+    codes = []
+    real = service_mod.valle_generate_ragged
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        codes.append((a[2].cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+    out = {"card": nvidia_smi()}
+    service_mod.valle_generate_ragged = recording
+    try:
+        warm, out["warmup_wall_s"] = valle_serve(svc, audio)
+        flash_rec = CallRecorder(flash_mod, "_flash_forward",
+                                 lambda i, args: i % VALLE_LAYERS in (0, VALLE_LAYERS - 1))
+        snake_rec = CallRecorder(snake_mod, "snake")
+        try:
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.reset()
+            wavs, wall = valle_serve(svc, audio)
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in kernels.items()}
+        finally:
+            flash_rec.remove()
+            snake_rec.remove()
+        phone_len, batch_codes, gen_len = codes[-1]
+        valle_serve(solo, audio[:1])
+        alone_codes, alone_len = codes[-1][1], codes[-1][2]
+        out["profile"] = valle_profile(lambda: valle_serve(svc, audio))
+    finally:
+        service_mod.valle_generate_ragged = real
+        svc.shutdown()
+        solo.shutdown()
+    want = {name: 0 for name in launches}
+    want.update(rms_norm=VALLE_AR_NORMS * (1 + max_new), flash_attn_fwd=VALLE_NAR_FLASH,
+                snake=MG_SNAKE_PER_PASS * (len(audio) + 1))
+    check("valle window bf16 batch: launches as worked out beforehand (25 RMSNorms an AR "
+          "pass x (1 prefill + the steps), #6 84 for the batch's NAR, #1 29 a codec pass x "
+          "(4 encodes + 1 batched decode)), no other kernel", launches == want,
+          f"{launches} (want {want})")
+    lens = [len(w) for w in wavs]
+    n_gen = gen_len.tolist()
+    check("valle window bf16 batch: four finite waveforms of max(gen_len, 1) x 240 samples",
+          lens == [max(n, 1) * 240 for n in n_gen]
+          and all(np.isfinite(w).all() and np.abs(w).max() > 1e-3 for w in wavs),
+          f"lengths {lens}, gen_len {n_gen}, max|wav| {[float(np.abs(w).max()) for w in wavs]}")
+    row0 = int(torch.nonzero(phone_len == len(VALLE_TEXTS[0][0]) + 1
+                             + len(VALLE_TEXTS[0][1]))[0])
+    agree = int((alone_codes[0, 0] == batch_codes[row0, 0]).sum())
+    audio_s = sum(lens) / SR
+    out.update(batch_wall_s=wall, audio_s=audio_s, audio_s_per_s=audio_s / wall,
+               launches=launches, gen_len=n_gen,
+               rerun_bit_equal=[bool(np.array_equal(a, b)) for a, b in zip(warm, wavs)],
+               request0_alone_agreeing_tokens=agree, request0_alone_gen_len=int(alone_len[0]))
+    log(f"valle window bf16 ({out['card']}): " + json.dumps(out))
+    # kernel 6 on the NAR's recorded calls, kernel 1 on every launch of the batch
+    worst6, short = 0.0, 0
+    for i, (q, k, v, mask, causal, lse) in flash_rec.calls:
+        got = flash_mod._flash_forward(q, k, v, mask, causal, False)
+        ref = flash_mod.attention_ref(q, k, v, mask, causal)
+        ok, detail = close_bf16(got, ref)
+        again = torch.equal(flash_mod._flash_forward(q, k, v, mask, causal, False), got)
+        if not (ok and again):
+            check(f"valle #6 call {i} {tuple(q.shape)}", False, f"{detail}; relaunch {again}")
+        worst6 = max(worst6, (got.float() - ref.float()).abs().max().item())
+        short += int(mask is not None and bool((mask == 0).any()))
+    check("valle #6 on the NAR's own inputs against attention_ref (bf16 tolerance), bit-equal "
+          "on relaunch", len(flash_rec.calls) == 14 and short == 14,
+          f"{len(flash_rec.calls)} recorded calls (layers 0 and 11 of the 7 stages) of shape "
+          f"{tuple(flash_rec.calls[0][1][0].shape)}, {short} with a key mask that cuts rows "
+          f"short; max|err| {worst6:.3g}")
+    shapes = {}
+    for i, (x, alpha) in snake_rec.calls:
+        if not torch.equal(snake_mod.snake(x, alpha), snake_mod.snake_ref(x, alpha)):
+            check(f"valle #1 call {i} {tuple(x.shape)}", False, "not bit-equal to snake_ref")
+        shapes.setdefault(tuple(x.shape), [x, alpha, 0])[2] += 1
+    check("valle #1: each of the batch's launches bit-equal to snake_ref",
+          len(snake_rec.calls) == want["snake"],
+          f"{len(snake_rec.calls)} launches, {len(shapes)} shapes from {min(shapes)} to "
+          f"{max(shapes)}, float32")
+    out.update(flash_calls=flash_rec.calls, snake_shapes=shapes, flash_err=worst6)
+    return out
+
+
+def valle_quant_phase(rec, head_calls: list, model, reqs, kernels: dict) -> dict:
+    """(d) Kernels 4 and 5 on the int8 engine's recorded projection inputs
+    (K = 1024 and 2816; decode rows 1-4 and the prefills' rows), #5 with
+    the int4 projections of the same weights (`prepare_for_decode`), and the
+    head GEMV on its recorded inputs (N = 1025); then a 64-step int4 solo
+    decode of request 0, its launches counted."""
+    from amphion_tpu_torch.models.tts.valle.valle import ar_generate_ragged, prepare_for_decode
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear, bf16_linear_ref
+
+    err8 = path_quant_check("valle int8", rec, int4=False)
+    m4 = prepare_for_decode(model, "int4")
+    import types
+
+    rec4 = types.SimpleNamespace(seen={})
+    for (name, m, pro), (_, x, rms) in rec.seen.items():
+        _, layer, label = name.split()
+        blk = getattr(m4.ar, layer)
+        mod = {"qkv": blk.attn.qkv_proj, "o": blk.attn.o_proj, "gateup": blk.mlp.gateup_proj,
+               "down": blk.mlp.down_proj}[label]
+        rec4.seen[(name, m, pro)] = (mod, x, rms)
+    err4 = path_quant_check("valle int4", rec4, int4=True)
+    ks = sorted({x.shape[1] for _, x, _ in rec.seen.values()})
+    ms = sorted({m for (_, m, _) in rec.seen})
+    check("valle #4/#5 recorded at K = 1024 and 2816, decode rows and prefill rows",
+          ks == [VALLE_HIDDEN, VALLE_FFN] and min(ms) == 1 and max(ms) > 8,
+          f"K {ks}, rows {ms}")
+    worst, shapes = 0.0, set()
+    for i, (x, w) in head_calls:
+        out, ref = bf16_linear(x, w), bf16_linear_ref(x, w)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = err <= 2e-2 * ref.float().abs().max().item() and torch.equal(bf16_linear(x, w), out)
+        rows = all(torch.equal(bf16_linear(x[r:r + 1], w)[0], out[r]) for r in range(x.shape[0]))
+        if not (ok and rows):
+            check(f"valle head GEMV call {i} {tuple(x.shape)}", False,
+                  f"max|err| {err:.3g}, rows alone bit-equal {rows}")
+        worst, shapes = max(worst, err), shapes | {tuple(x.shape)}
+    check("valle bf16_gemv (the 1025-wide head) on its recorded inputs: within 2e-2 of the "
+          "plain version, relaunch and each row alone bit-equal",
+          len(head_calls) > 0 and all(w.shape[0] == VALLE_VOCAB for _, (_, w) in head_calls),
+          f"{len(head_calls)} calls, shapes {sorted(shapes)}, N {VALLE_VOCAB}, max|err| {worst:.3g}")
+    ph, pr, seed = reqs[0]
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    steps = 64
+    ar_generate_ragged(m4, ph[None], torch.tensor([len(ph)]), pr[None], torch.tensor([len(pr)]),
+                       [torch.Generator(DEV).manual_seed(seed)], max_new=steps,
+                       compute_dtype="int4")
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: 0 for name in launches}
+    want.update(int4_matmul=VALLE_AR_PROJ * (1 + steps), rms_norm=VALLE_AR_NORMS * (1 + steps),
+                bf16_gemv=1 + steps)
+    check("valle int4 solo decode (64 steps): launches as worked out beforehand",
+          launches == want, f"{launches} (want {want})")
+    return {"int8_err": err8, "int4_err": err4, "head_err": worst, "m4": m4,
+            "int4_launches": launches}
+
+
+def valle_reference_phase(seed: int) -> None:
+    """(e) A small float32 VALL-E (width 128, 2 layers, 64 codes, 3
+    codebooks) and codec, at weights Flax's init draws, greedy on the card
+    and on the CPU: a ragged batch of three, AR and NAR codes equal, and the
+    codec decode of those codes against the CPU's float64 decode, the truth
+    (`maskgct_reference_phase` says why): the card's float64 decode within
+    1e-9 of it, its float32 decode (#1) no further from it than 4x the
+    CPU's float32 decode."""
+    import copy
+
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
+    from amphion_tpu_torch.models.tts.valle.valle import VALLE, VALLEConfig, valle_generate_ragged
+    from amphion_tpu_torch.modules.activations import Snake
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    g = torch.Generator().manual_seed(seed + 17)
+    model = init_like_flax(VALLE(VALLEConfig(num_phones=64, audio_vocab=64, num_quantizers=3,
+                                             hidden=128, num_layers=2, num_heads=2)), g).eval()
+    for name, prm in model.named_parameters():
+        if "to_weight.weight" in name:
+            prm.data.normal_(0.0, 0.05, generator=g)
+    codec = init_like_flax(AmphionCodec(CodecConfig(num_quantizers=3, codebook_size=64)), g)
+    codec64 = copy.deepcopy(codec).double()
+    for mod in codec64.modules():
+        if isinstance(mod, Snake):
+            mod.use_pallas = False
+    rng = np.random.default_rng(seed + 18)
+    phones, plen = rng.integers(1, 64, (3, 40)), [40, 23, 31]
+    prompt, clen = rng.integers(0, 64, (3, 3, 30)), [30, 17, 24]
+    outs = {}
+    for dev in (DEV, "cpu"):
+        for mod in (model, codec, codec64):
+            mod.to(dev)
+
+        def L(a):
+            return torch.as_tensor(np.asarray(a)).long().to(dev)
+        codes, n = valle_generate_ragged(model, L(phones), L(plen), L(prompt), L(clen),
+                                         max_new=48, temperature=0.0, compute_dtype="float32")
+        with torch.no_grad():
+            lens = torch.clamp(n, min=1)
+            wav = codec.decode_codes(codes.transpose(0, 1), lens)
+            wav64 = codec64.decode_codes(codes.transpose(0, 1), lens)
+        outs[dev] = codes.cpu(), n.cpu(), wav.double().cpu(), wav64.cpu()
+    (c_g, n_g, w_g, w64_g), (c_c, n_c, w_c, truth) = outs[DEV], outs["cpu"]
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+    e64, e_card, e_cpu = err(w64_g, truth), err(w_g, truth), err(w_c, truth)
+    check("valle reference: a small f32 batch at Flax-init weights, greedy, card vs CPU",
+          torch.equal(c_g, c_c) and torch.equal(n_g, n_c) and e64 <= 1e-9
+          and e_card <= 4 * e_cpu and bool(torch.isfinite(w_g).all())
+          and truth.abs().max().item() > 1e-3,
+          f"codes equal {torch.equal(c_g, c_c)} ({(c_g == c_c).float().mean().item():.4f}), "
+          f"gen_len {n_g.tolist()} / {n_c.tolist()}; waveform against the CPU's float64 decode: "
+          f"card float64 max|err| {e64:.3g} (tol 1e-9), card float32 {e_card:.3g}, CPU float32 "
+          f"{e_cpu:.3g} (card tol 4x CPU); card vs CPU float32 {err(w_g, w_c):.3g}")
+
+
+def valle_http_phase(args, kernels: dict) -> dict:
+    """(c) `bins/serve.py --backend valle` as a user starts it, at the CLI's
+    defaults (continuous batcher, bf16; ``--max_new`` cut), on 127.0.0.1:
+    six requests of a fixed Poisson trace from `serving/loadgen.py`; each a
+    24 kHz mono PCM16 wav of whole codec frames; the path's launches."""
+    import base64
+    import io
+    import urllib.request
+    import wave
+
+    from amphion_tpu_torch.bins import serve as serve_cli
+    from amphion_tpu_torch.serving import loadgen
+
+    rng = np.random.default_rng(303)
+    audio = [synth_audio(rng, s) for s in (3.2, 3.9, 4.4, 3.6, 4.1, 3.3)]
+    t0 = time.perf_counter()
+    backend = serve_cli.BUILDERS["valle"](args)
+    build_s = time.perf_counter() - t0
+    httpd = serve_cli.serve(backend.synth, backend.stats, "valle", port=0,
+                            input_sr=backend.sample_rate)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    replies = {}
+    submit = loadgen.http_synthesize_submit(url, timeout_s=600)
+
+    def make_request(i):
+        ptext, ttext = VALLE_TEXTS[i % len(VALLE_TEXTS)]
+        wav = serve_cli._encode_wav_bytes(audio[i], SR)
+        return {"prompt_wav": base64.b64encode(wav).decode(), "prompt_text": ptext,
+                "target_text": ttext, "seed": 800 + i}
+
+    def keep(payload):
+        replies[payload["seed"]] = submit(payload)
+
+    try:
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.reset()
+        res = loadgen.run_trace(keep, make_request, loadgen.poisson_arrivals(2.0, 6, seed=5),
+                                drain_timeout_s=600)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        with urllib.request.urlopen(url + "/api/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+        backend.shutdown()
+    frames = {}
+    for sd, data in sorted(replies.items()):
+        with wave.open(io.BytesIO(data)) as w:
+            ok = (w.getframerate(), w.getnchannels(), w.getsampwidth()) == (SR, 1, 2)
+            frames[sd] = w.getnframes() // 240 if ok and w.getnframes() % 240 == 0 else None
+    out = {"build_s": build_s, "load": res.row(), "latency_ms": res.lat_ms, "stats": stats,
+           "launches": launches, "frames": frames}
+    log(f"valle http (bins/serve.py, continuous batcher, bf16, {nvidia_smi()}): "
+        + json.dumps(out))
+    check("valle http: six requests answered with well-formed wavs of whole codec frames",
+          res.n_ok == 6 and res.n_err == 0 and len(frames) == 6
+          and all(f is not None and 0 < f <= args.max_new for f in frames.values()),
+          f"{res.n_ok} ok, {res.n_err} failed; frames {frames}")
+    passes = stats["chunks"] * ENGINE_CHUNK + stats["admitted"]
+    want = {name: 0 for name in launches}
+    want.update(rms_norm=VALLE_AR_NORMS * passes, flash_attn_fwd=VALLE_NAR_FLASH * 6,
+                snake=2 * MG_SNAKE_PER_PASS * 6)
+    check("valle http: launches as worked out beforehand (25 RMSNorms an AR pass over the "
+          "engine's chunks and admissions, #6 84 and #1 58 a request)",
+          launches == want and stats["admitted"] == 6 and stats["solo_served"] == 0,
+          f"{launches} (want {want}; {stats['chunks']} chunks, {stats['admitted']} admitted)")
+    return out
+
+
+def valle_kernel_rows(win: dict, quant: dict, eng: dict, model) -> list:
+    """Rows at VALL-E's shapes: #6 at the NAR's call ((4, 1024, 16, 64) bf16
+    with the batch's key mask), #1 over the batch's Snake shapes, #4 and #5
+    at one decode step's 48 projections (M = 4, the int8 engine's weights
+    and their int4 quantization; K = 1024 and 2816, each projection type
+    apart), and the head GEMV at N = 1025."""
+    from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear, bf16_linear_ref
+    from amphion_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_ref
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    card = nvidia_smi()
+    q, k, v, mask, causal, _ = win["flash_calls"][0][1]
+    b, L, h, d = q.shape
+    valid = (mask > 0).sum(dim=1).float()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bmask = (mask > 0)[:, None, None, :]
+    fl_ms = graph_ms(lambda: flash_mod.flash_attention(q, k, v, mask))
+    fl_lib = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask))
+    fl_plain = graph_ms(lambda: flash_mod.attention_ref(q, k, v, mask), iters=5)
+    fl_bound, fl_by = _bound(4.0 * h * d * L * float(valid.sum()), 4 * b * L * h * d * 2 + b * L * 4)
+    log(f"timing valle flash_attn_fwd ({card}): ({b}, {L}, {h}, {d}) bf16, valid keys "
+        f"{valid.long().tolist()}: kernel {fl_ms} ms, plain {fl_plain} ms, SDPA {fl_lib} ms, "
+        f"bound {fl_bound} ms ({fl_by})")
+    rows = [_row("flash_attn_fwd_valle", "flash_attn_fwd.cu", 843,
+                 win["launches"]["flash_attn_fwd"], win["flash_err"], fl_ms, fl_plain, fl_bound,
+                 fl_by, fl_lib, ms_is=f"one NAR call ({b}, {L}, {h}, {d}) bf16 with the batch's "
+                 f"key mask (valid {valid.long().tolist()}), recorded at the wrapper; CUDA-graph "
+                 "replays", launches_are="one window batch of four (7 stages x 12 layers)")]
+    per = []
+    for shape, (x, alpha, n) in sorted(win["snake_shapes"].items()):
+        numel = x.numel()
+        t_ops, t_bytes = 6.0 * numel / PEAK_F32, (8.0 * numel + 4 * shape[2]) / HBM
+        per.append({"shape": shape, "launches": n,
+                    "ms": graph_ms(lambda: snake_mod.snake(x, alpha)),
+                    "plain_ms": graph_ms(lambda: snake_mod.snake_ref(x, alpha)),
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    tot = sum(p["launches"] for p in per)
+
+    def mean(key):
+        return sum(p[key] * p["launches"] for p in per) / tot
+    log(f"timing valle snake ({card}): " + json.dumps(per))
+    rows.append(_row("snake_valle", "snake.cu", 78, win["launches"]["snake"], 0.0, mean("ms"),
+                     mean("plain_ms"), mean("bound_ms"),
+                     max(("bytes", "operations"),
+                         key=lambda kk: sum(p["bound_by"] == kk for p in per)), None,
+                     ms_is="mean per launch over one window batch's 145 (4 codec encodes of "
+                           "4 s prompts, 1 batched decode), each shape on its recorded input, "
+                           "CUDA-graph replays", per_shape=per))
+    # #4/#5: one decode step's 48 projections at M = 4, and each projection type apart
+    g = torch.Generator(DEV).manual_seed(21)
+    m = ENGINE_SLOTS
+    xs = {kk: torch.randn((m, kk), generator=g, device=DEV).bfloat16()
+          for kk in (VALLE_HIDDEN, VALLE_FFN)}
+
+    def projections(mdl):
+        for i in range(VALLE_LAYERS):
+            layer = getattr(mdl.ar, f"layer_{i}")
+            yield from (layer.attn.qkv_proj, layer.attn.o_proj, layer.mlp.gateup_proj,
+                        layer.mlp.down_proj)
+
+    for name, mdl, mm, ref, line, src, launches in (
+            ("int8_matmul", eng["svc"].model, int8_matmul, int8_matmul_ref, 511,
+             "int8_matmul.cu", eng["launches"]["int8_matmul"]),
+            ("int4_matmul", quant["m4"], int4_matmul, int4_matmul_ref, 679, "int4_matmul.cu",
+             quant["int4_launches"]["int4_matmul"])):
+        mods = list(projections(mdl))
+        i4 = name == "int4_matmul"
+
+        def k_in(qd):
+            return qd.kernel_q.shape[1] * (2 if i4 else 1)
+
+        def call(fn, qd, x=None):
+            x = xs[k_in(qd)] if x is None else x
+            extra = (qd.group,) if i4 else ()
+            return fn(x, qd.kernel_q, qd.scale, *extra, out_dtype=torch.bfloat16)
+
+        def nbytes(sub, rows):
+            return sum(qd.kernel_q.numel() + 4 * qd.scale.numel()
+                       + 2 * rows * (k_in(qd) + qd.kernel_q.shape[0]) for qd in sub)
+
+        def ops(sub, rows):
+            return sum(2.0 * rows * k_in(qd) * qd.kernel_q.shape[0] for qd in sub)
+
+        def library(sub):
+            """``torch._weight_int8pack_mm`` / ``_weight_int4pack_mm`` over
+            ``sub``, or None where it is missing or disagrees."""
+            try:
+                if i4:
+                    from amphion_tpu_torch.ops.kernels.int4_matmul import unpack_int4
+
+                    def pack(qd):
+                        u = unpack_int4(qd.kernel_q).to(torch.int32) + 8
+                        w = torch._convert_weight_to_int4pack(
+                            ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+                        sz = torch.stack([qd.scale, torch.zeros_like(qd.scale)], -1).bfloat16()
+                        return w, qd.group, sz
+                    args, fn = [pack(qd) for qd in sub], torch._weight_int4pack_mm
+                else:
+                    args = [(qd.kernel_q, qd.scale.bfloat16()) for qd in sub]
+                    fn = torch._weight_int8pack_mm
+                want = call(ref, sub[0]).float()
+                err = (fn(xs[k_in(sub[0])], *args[0]).float() - want).abs().max().item()
+                if err > 2e-2 * want.abs().max().item():
+                    log(f"timing valle {name}: the library call disagrees ({err:.3g})")
+                    return None
+                return graph_ms(lambda: [fn(xs[k_in(qd)], *a) for qd, a in zip(sub, args)])
+            except (RuntimeError, AttributeError, NotImplementedError) as e:
+                log(f"timing valle {name}: no library call: {str(e)[:160]}")
+                return None
+
+        per_proj = {}
+        for j, label in enumerate(("qkv", "o", "gateup", "down")):
+            sub = mods[j::4]
+            per_proj[label] = {
+                "K": k_in(sub[0]), "N": sub[0].kernel_q.shape[0],
+                "us": graph_ms(lambda: [call(mm, qd) for qd in sub]) / len(sub) * 1e3,
+                "bound_us": _bound(ops(sub, m), nbytes(sub, m))[0] / len(sub) * 1e3,
+                "library_us": (lambda t: None if t is None else t / len(sub) * 1e3)(library(sub))}
+        k_ms = graph_ms(lambda: [call(mm, qd) for qd in mods])
+        p_ms = graph_ms(lambda: [call(ref, qd) for qd in mods], iters=5)
+        bound, by = _bound(ops(mods, m), nbytes(mods, m))
+        lib = library(mods)
+        err = quant["int4_err" if i4 else "int8_err"]
+        log(f"timing valle {name} ({card}): one decode step (48 projections, M={m}) kernel "
+            f"{k_ms} ms, plain {p_ms} ms, library {lib} ms, bound {bound} ms ({by}); by "
+            f"projection (12 layers' weights each): {json.dumps(per_proj)}")
+        rows.append(_row(f"{name}_valle", src, line, launches, err, k_ms, p_ms, bound, by, lib,
+                         ms_is=f"one VALL-E decode step's 48 projections at M={m}, CUDA-graph "
+                               "replays", per_projection=per_proj,
+                         launches_are=("the int8 engine run (graph replays counted)" if not i4
+                                       else "a 64-step int4 solo decode of request 0")))
+    # the head GEMV at N = 1025
+    x = torch.randn((m, VALLE_HIDDEN), generator=g, device=DEV).bfloat16()
+    w = eng["svc"].model.ar_head.weight.detach()
+    hb, hby = _bound(2.0 * m * w.numel(), 2 * (w.numel() + m * VALLE_HIDDEN + m * w.shape[0]))
+    h_ms, h_plain = graph_ms(lambda: bf16_linear(x, w)), graph_ms(lambda: bf16_linear_ref(x, w))
+    h_lib = graph_ms(lambda: F.linear(x, w))
+    log(f"timing valle bf16_gemv ({card}): ({m}, {VALLE_HIDDEN}) x ({w.shape[0]}, "
+        f"{VALLE_HIDDEN}) bf16, kernel {h_ms} ms, plain {h_plain} ms, F.linear {h_lib} ms, "
+        f"bound {hb} ms ({hby})")
+    row = _row("bf16_gemv_valle", "bf16_gemv.cu", 0, eng["launches"]["bf16_gemv"],
+               quant["head_err"], h_ms, h_plain, hb, hby, h_lib,
+               ms_is=f"one call at the engine's {m}-row step, the 1025-wide head, CUDA-graph "
+                     "replays", launches_are="the int8 engine run (graph replays counted)")
+    row["replaces"] = ("amphion_tpu/models/tts/valle/valle.py:208 (ar_head, computed by XLA "
+                       "there: no Pallas kernel)")
+    rows.append(row)
+    return rows
+
+
+def valle_cli_check(path: str, root: str) -> dict:
+    """`bins/tts/inference.py` in VALLE mode as a user runs it (the CLI's
+    defaults: bf16 AR, top-k 50, seed 0; ``--max_new 256``) on the phase's
+    checkpoints: the wav holds max(gen_len, 1) codec frames of 240 samples,
+    gen_len as the run's own AR decode returned it."""
+    from amphion_tpu_torch.bins.tts import inference as tts_cli
+    from amphion_tpu_torch.data.audio_io import load_wav, save_wav
+
+    prompt = os.path.join(root, "prompt.wav")
+    save_wav(prompt, synth_audio(np.random.default_rng(304), 3.7), SR)
+    lengths = []
+    real = tts_cli.ar_generate
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        lengths.append(int(out[1][0]))
+        return out
+    tts_cli.ar_generate = recording
+    out_wav = os.path.join(root, "valle_cli.wav")
+    t0 = time.perf_counter()
+    try:
+        tts_cli.main(["--config", path, "--exp_name", "valle", "--codec_ckpt",
+                      os.path.join(root, "codec"), "--prompt_audio", prompt, "--prompt_text",
+                      VALLE_TEXTS[2][0], "--text", VALLE_TEXTS[2][1], "--output_path", out_wav,
+                      "--max_new", "256", "--device", DEV])
+    finally:
+        tts_cli.ar_generate = real
+    wall = time.perf_counter() - t0
+    wav, sr = load_wav(out_wav)
+    want = max(lengths[0], 1) * 240
+    check("valle CLI (bins/tts/inference.py, model_type VALLE): a 24 kHz wav of max(gen_len, 1) "
+          "x 240 samples", sr == SR and len(wav) == want and np.abs(wav).max() > 1e-3,
+          f"{len(wav)} samples at {sr} Hz (want {want}: gen_len {lengths[0]} of 256), "
+          f"{wall:.1f} s")
+    return {"wall_s": wall, "gen_len": lengths[0], "samples": len(wav)}
+
+
+def valle_phase(seed: int, kernels: dict, max_new: int) -> dict:
+    """VALL-E as `bins/serve.py --backend valle` serves it, at the width of
+    `egs/tts/VALLE/exp_config.json`, random weights from ``seed`` written as
+    port checkpoints and loaded by `bins/tts/inference.build_valle` (what
+    `_build_valle_service` builds on): (a) the int8 engine, (b) the bf16
+    window batch, (d) the kernels on the paths' recorded inputs, (c) the
+    HTTP backend, then the TTS CLI in VALLE mode."""
+    import logging
+    import tempfile
+
+    from amphion_tpu_torch.bins import serve as serve_cli
+    from amphion_tpu_torch.bins.tts.inference import build_valle
+    from amphion_tpu_torch.utils.config import load_config
+
+    out = {"card": nvidia_smi()}
+    with tempfile.TemporaryDirectory(prefix="valle_") as root:
+        t0 = time.perf_counter()
+        path = valle_write_checkpoints(root, seed)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        argv = ["--backend", "valle", "--config", path, "--exp_name", "valle",
+                "--codec_ckpt", os.path.join(root, "codec"), "--device", DEV, "--port", "0",
+                "--max_new", str(max_new)]
+        args = serve_cli.parse_args(argv)
+        t0 = time.perf_counter()
+        model, tok, g2p, symbols = build_valle(args, load_config(path),
+                                               logging.getLogger("smoke"), device=DEV)
+        out["build_s"] = time.perf_counter() - t0
+        c = model.cfg
+        check("valle: the model as built from the checkpoints",
+              (c.hidden, c.num_layers, c.num_heads, c.audio_vocab, c.num_quantizers)
+              == (VALLE_HIDDEN, VALLE_LAYERS, 16, 1024, 8)
+              and model.ar.cfg.ffn_dim == VALLE_FFN and tok.hop == 240,
+              f"{c}, FFN {model.ar.cfg.ffn_dim}, codec hop {tok.hop}, parameters "
+              f"{sum(p.numel() for p in model.parameters())}")
+        eng = valle_engine_phase(model, tok, g2p, symbols, kernels, max_new)
+        eng["svc"].shutdown()
+        win = valle_window_phase(model, tok, g2p, symbols, kernels, max_new)
+        quant = valle_quant_phase(eng["rec"], eng["head_calls"], model, eng["reqs"], kernels)
+        rows = valle_kernel_rows(win, quant, eng, model)
+        out.update(engine=eng["perf"], window={k: v for k, v in win.items()
+                                               if k not in ("flash_calls", "snake_shapes")},
+                   int4_launches=quant["int4_launches"])
+        del model, tok, eng, win, quant
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["http"] = valle_http_phase(args, kernels)
+        out["cli"] = valle_cli_check(path, root)
+    log(f"valle ({out['card']}): " + json.dumps(
+        {k: v for k, v in out.items() if k in ("checkpoints_s", "build_s", "int4_launches",
+                                               "cli")}))
+    out["rows"] = rows
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new", type=int, default=512,
+    ap.add_argument("--max-new", type=int, default=384,
                     help="AR decode steps of the voice runs (bins/serve.py's default is "
                          "768; cut so that the whole run stays well inside its time)")
     args = ap.parse_args()
@@ -3369,15 +4180,24 @@ def main() -> int:
     log(f"build: {', '.join(k.source.name for k in kernels.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
+    laps = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Logs the seconds since the last lap: where the run's time goes."""
+        laps.append(time.perf_counter())
+        log(f"{name} phases {laps[-1] - laps[-2]:.1f} s")
+
     errs = kernel_phase(mel_mod, flash_mod, args.seed)
     errs.update(bwd_kernel_phase(flash_mod, args.seed))
     quant_kernel_phase(args.seed)
     errs.update(snake_kernel_phase(args.seed))
+    lap("kernel check")
     vocoder_reference_phase(args.seed)
     reference_phase(args.seed)
     ar_reference_phase(args.seed)
     train_reference_phase(args.seed)
     train = {stage: train_phase(stage, args.seed, kernels) for stage in TRAIN}
+    lap("reference and training")
     sl = slice_phase(args.seed, MEL, FLASH)
     rows = timing_phase(mel_mod, flash_mod, sl, errs)
     cfg = load_config("config/vevo.json")
@@ -3386,11 +4206,14 @@ def main() -> int:
                      solo_check=False)
     fused = fused_phase(v8, v4, args.seed, args.max_new, kernels)
     padding_phase(v8)
+    lap("timbre and voice")
     for v, dtype in ((v8, "int8"), (v4, "int4")):
         row_invariance_phase(v, dtype, args.max_new)
-        engine_phase(v, dtype, args.max_new, kernels)["svc"].shutdown()
+        engine_phase(v, dtype, ENGINE_MAX_NEW, kernels)["svc"].shutdown()
     bf16_engine_phase(cfg, args.seed, v8, args.max_new)
+    lap("voice engine")
     http = http_phase(cfg, args.seed, "int8", args.max_new, kernels, v8["audio"])
+    lap("voice http")
     rows += quant_timing_phase(v8, v4, fused)
     rows += engine_kernel_rows(v8, http)
     del v8, v4, fused
@@ -3399,17 +4222,26 @@ def main() -> int:
     bwd_row, fwd_extra = bwd_timing_phase(flash_mod, train, errs)
     next(r for r in rows if r["name"] == "flash_attn_fwd").update(fwd_extra)
     rows.append(bwd_row)
+    lap("kernel timing")
     voc = vocoder_phase(args.seed, kernels)
     rows += snake_timing_phase(voc, errs, kernels)
     del voc
     gc.collect()
     torch.cuda.empty_cache()
+    lap("vocoder")
     maskgct_reference_phase(args.seed)
     mg = maskgct_phase(args.seed, kernels)
     for r in rows:  # kernel 1's first model path
         if r["name"] == "snake":
             r["maskgct_path_launches"] = mg["launches"]["snake"]
     rows += mg["rows"]
+    del mg
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("maskgct")
+    valle_reference_phase(args.seed)
+    rows += valle_phase(args.seed, kernels, VALLE_MAX_NEW)["rows"]
+    lap("valle")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -57,12 +57,22 @@ AR = dict(input_vocab=8, output_vocab=48, hidden=64, intermediate=128, num_layer
 def ar_pair():
     jm = JAR(JARConfig(**AR))
     toks = jnp.zeros((1, 5), jnp.int32)
-    params = jax.jit(functools.partial(jm.init, method=JAR.forward))(
-        jax.random.key(0), toks, jnp.ones((1, 5)), toks, jnp.ones((1, 5)))["params"]
+    # every leaf random (Flax's shapes, traced by ``jax.eval_shape``, not compiled):
+    # kernels normal over sqrt(fan_in), embeddings over sqrt(features), norm scales
+    # (Flax's ones) uniform in [0.5, 1.5], the rest 0.1 normal
+    shapes = jax.eval_shape(functools.partial(jm.init, method=JAR.forward), jax.random.key(0),
+                            toks, jnp.ones((1, 5)), toks, jnp.ones((1, 5)))["params"]
     rng = np.random.default_rng(3)
-    params = jax.tree_util.tree_map(  # exercise every leaf
-        lambda p: np.asarray(p)
-        + 0.02 * rng.standard_normal(p.shape).astype(np.float32), jax.device_get(params))
+
+    def leaf(path, s):
+        name = path[-1].key
+        adaptive = len(path) > 1 and path[-2].key == "to_weight"
+        if name == "scale" or (adaptive and name == "bias"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        std = ((0.2 if adaptive else 1.0) / np.sqrt(np.prod(s.shape[:-1])) if name == "kernel"
+               else 1.0 / np.sqrt(s.shape[-1]) if name == "embedding" else 0.1)
+        return (std * rng.standard_normal(s.shape)).astype(np.float32)
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
     return jm, params
 
 
@@ -183,22 +193,23 @@ def test_right_packing_matches_jax():
     a = rng.integers(0, 50, (3, 6)).astype(np.int32)
     b = rng.integers(0, 50, (3, 4)).astype(np.int32)
     la, lb = np.array([6, 2, 4], np.int32), np.array([1, 4, 3], np.int32)
-    ref = jax_pack_right([jnp.asarray(a), jnp.asarray(b)], [jnp.asarray(la), jnp.asarray(lb)])
+    ref, vref = jax.jit(lambda a, b, la, lb: (  # one program, not op by op
+        jax_pack_right([a, b], [la, lb]), jax_right_valid([la, lb], 10, 14)))(a, b, la, lb)
     out = tragged.pack_segments_right([T(a), T(b)], [T(la), T(lb)])
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
-    vref = jax_right_valid([jnp.asarray(la), jnp.asarray(lb)], 10, 14)
     vout = tragged.right_pack_valid([T(la), T(lb)], 10, 14)
     np.testing.assert_array_equal(vout.numpy(), np.asarray(vref))
 
 
 def test_sampling_filters_match_jax_and_draws_follow_generators():
     logits = np.random.default_rng(8).standard_normal((3, 50)).astype(np.float32)
-    for k in (0, 5, 50):
-        np.testing.assert_array_equal(top_k_filter(T(logits), k).numpy(),
-                                      np.asarray(jax_top_k(jnp.asarray(logits), k)))
-    for p in (0.3, 0.9, 1.0):
-        np.testing.assert_array_equal(top_p_filter(T(logits), p).numpy(),
-                                      np.asarray(jax_top_p(jnp.asarray(logits), p)))
+    # JAX's filters, all in one program (eager JAX dispatches op by op)
+    want = jax.jit(lambda x: ([jax_top_k(x, k) for k in (0, 5, 50)],
+                              [jax_top_p(x, p) for p in (0.3, 0.9, 1.0)]))(logits)
+    for k, w in zip((0, 5, 50), want[0]):
+        np.testing.assert_array_equal(top_k_filter(T(logits), k).numpy(), np.asarray(w))
+    for p, w in zip((0.3, 0.9, 1.0), want[1]):
+        np.testing.assert_array_equal(top_p_filter(T(logits), p).numpy(), np.asarray(w))
     lg = T(logits)
     assert (sample_logits(lg, None, 0.0) == lg.argmax(-1)).all()
     gens = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]

@@ -48,12 +48,22 @@ ENGINE = dict(slots=2, chunk=4, buckets=(16,), out_buckets=(8,), max_new=24, top
 def models():
     jm = JAR(JARConfig(**CFG))
     toks = jnp.zeros((1, 6), jnp.int32)
-    params = jax.jit(functools.partial(jm.init, method=JAR.loss))(
-        jax.random.key(0), toks, jnp.ones((1, 6)), toks, jnp.ones((1, 6)))["params"]
+    # every leaf random (Flax's shapes, traced by ``jax.eval_shape``, not compiled):
+    # kernels normal over sqrt(fan_in), embeddings over sqrt(features), norm scales
+    # (Flax's ones) uniform in [0.5, 1.5], the rest 0.1 normal
+    shapes = jax.eval_shape(functools.partial(jm.init, method=JAR.loss), jax.random.key(0),
+                            toks, jnp.ones((1, 6)), toks, jnp.ones((1, 6)))["params"]
     rng = np.random.default_rng(2)
-    params = jax.tree_util.tree_map(  # break the init's symmetries
-        lambda p: np.asarray(p) + 0.05 * rng.standard_normal(p.shape).astype(np.float32),
-        jax.device_get(params))
+
+    def leaf(path, s):
+        name = path[-1].key
+        adaptive = len(path) > 1 and path[-2].key == "to_weight"
+        if name == "scale" or (adaptive and name == "bias"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        std = ((0.2 if adaptive else 1.0) / np.sqrt(np.prod(s.shape[:-1])) if name == "kernel"
+               else 1.0 / np.sqrt(s.shape[-1]) if name == "embedding" else 0.1)
+        return (std * rng.standard_normal(s.shape)).astype(np.float32)
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
     port = prepare_for_decode(from_flax(ARTransformer(ARTransformerConfig(**CFG)), params),
                               "float32")
     return jm, params, port

@@ -862,6 +862,118 @@ def test_continuous_engine_graphs_match_eager_and_solo(cuda, dtype):
         assert torch.equal(out[True][i], solo), i
 
 
+
+# -- VALL-E's shapes (config/valle.json: width 1024, FFN 2816, a 1025-wide head) --
+# #4/#5 at the AR's projections, qkv (1024 → 3072), o (1024 → 1024), gateup
+# (1024 → 5632) and down (2816 → 1024): the decode's GEMV at 1, 4 and 8 rows
+# (K = 2816 splits into 44 int8 chunks and 22 int4 groups over the cluster)
+# and the GEMM at an admission's prefill (128 phones + 512 prompt frames).
+VALLE_PROJ = [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024)]
+
+
+@pytest.mark.parametrize("k,n", VALLE_PROJ, ids=str)
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quant_matmuls_at_valle_shapes(cuda, kind, k, n):
+    """Kernel 4 or 5 against its plain version at VALL-E's projections: the
+    GEMV at M = 1, 4 and 8 (float32 within 1e-4 of max|ref|, bf16 within a
+    rounding), relaunched bit for bit, each row alone equal to its row among
+    8; the GEMM at 640 rows, relaunched bit for bit."""
+    x8, run = _quant_weights(cuda, kind, k, n, k + n + (kind == "int4"))
+    ref = _quant_ref(cuda, kind, k, n, k + n + (kind == "int4"))
+    for m in (1, 4, 8):
+        x = x8[:m]
+        for dt in (torch.float32, torch.bfloat16):
+            out = run(x, dt)
+            _mm_close(out, ref(x, dt))
+            assert torch.equal(run(x, dt), out)
+            full = run(x8, dt)
+            assert all(torch.equal(full[r], out[r]) for r in range(m)), (m, dt)
+    g = torch.Generator(cuda).manual_seed(k * n)
+    xg = torch.randn((640, k), generator=g, device=cuda).bfloat16()
+    out = run(xg, torch.float32)
+    _mm_close(out, ref(xg, torch.float32))
+    assert torch.equal(run(xg, torch.float32), out)
+
+
+def _quant_ref(cuda, kind, k, n, seed):
+    """The plain version of `_quant_weights`'s projection, same weights."""
+    from amphion_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul_ref, pack_int4, quantize_weight_int4)
+    from amphion_tpu_torch.ops.kernels.int8_matmul import int8_matmul_ref, quantize_weight_int8
+
+    g = torch.Generator(cuda).manual_seed(seed)
+    w = (torch.randn((n, k), generator=g, device=cuda) * 0.05).bfloat16()
+    if kind == "int8":
+        w_q, scale = quantize_weight_int8(w)
+        return lambda xx, dt: int8_matmul_ref(xx, w_q, scale, dt)
+    w_int, scale = quantize_weight_int4(w, 128)
+    w_p = pack_int4(w_int)
+    return lambda xx, dt: int4_matmul_ref(xx, w_p, scale, 128, None, 1e-6, dt)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_bf16_gemv_at_valle_head(cuda, m):
+    """The head GEMV at VALL-E's 1025 × 1024 head (N odd: a 1-column last
+    tile) against the plain version, relaunched bit for bit, each row alone
+    equal to its row in the call."""
+    from amphion_tpu_torch.ops.kernels.bf16_gemv import bf16_linear, bf16_linear_ref
+
+    g = torch.Generator(cuda).manual_seed(1025 + m)
+    x = torch.randn((m, 1024), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((1025, 1024), generator=g, device=cuda) / 32).bfloat16()
+    out = bf16_linear(x, w)
+    assert out.shape == (m, 1025)
+    _close(out, bf16_linear_ref(x, w), torch.bfloat16)
+    assert torch.equal(bf16_linear(x, w), out)
+    for r in range(m):
+        assert torch.equal(bf16_linear(x[r:r + 1], w)[0], out[r]), r
+
+
+def test_valle_engine_graphs_match_eager_and_solo(cuda):
+    """A small int8 VALL-E on the card: the engine replaying a CUDA graph a
+    rung gives each of four staggered requests the codebook-0 tokens of the
+    eager engine and of its one-shot ragged decode at the engine's capacity;
+    a captured step holds 25 launches a pass... here 2 layers: 5 RMSNorms, 8
+    GEMVs and the head."""
+    from amphion_tpu_torch.models.tts.valle.valle import (
+        VALLE, VALLEConfig, ar_generate_ragged, prepare_for_decode)
+    from amphion_tpu_torch.serving.continuous import ContinuousValleBatcher
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    with torch.device(cuda):
+        model = init_like_flax(VALLE(VALLEConfig(
+            num_phones=64, audio_vocab=64, num_quantizers=3, hidden=128, num_layers=2,
+            num_heads=2, max_position=512)), torch.Generator(cuda).manual_seed(0))
+    model = prepare_for_decode(model.eval(), "int8")
+    rng = torch.Generator().manual_seed(1)
+    reqs = [(torch.randint(1, 64, (int(9 + 7 * i),), generator=rng),
+             torch.randint(0, 64, (int(12 + 9 * i),), generator=rng), 70 + i) for i in range(4)]
+    kw = dict(slots=4, chunk=8, phone_buckets=(16, 48), prompt_buckets=(32, 64), max_new=40,
+              temperature=1.0, top_k=20, compute_dtype="int8")
+    out = {}
+    for graphs in (True, False):
+        eng = ContinuousValleBatcher(model, graphs=graphs, **kw)
+        rids = []
+        for ph, pr, seed in reqs:
+            rids.append(eng.submit(ph, pr, seed))
+            eng.step_chunk()
+        done = eng.run()
+        out[graphs] = [done[r] for r in rids]
+        if graphs:
+            assert eng.capacity == 48 + 64 + 40 + 8
+            for r in eng.rungs:
+                assert eng.step_launches(r) == {"rms_norm": 5, "bf16_gemv": 1, "int8_matmul": 8}
+    for i, (ph, pr, seed) in enumerate(reqs):
+        pad = torch.nn.functional.pad
+        toks, n = ar_generate_ragged(
+            model, pad(ph, (0, eng._bucket(len(ph)) - len(ph)))[None],
+            torch.tensor([len(ph)]),
+            pad(pr, (0, eng._bucket(len(pr), eng.out_buckets) - len(pr)))[None],
+            torch.tensor([len(pr)]), [torch.Generator(cuda).manual_seed(seed)], max_new=40,
+            top_k=20, compute_dtype="int8", capacity=eng.capacity)
+        assert torch.equal(out[True][i], out[False][i]), i
+        assert torch.equal(out[True][i], toks[0, :int(n[0])].cpu()), i
+
 def _tiny_codec():
     from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
     from amphion_tpu_torch.utils.convert import init_like_flax

@@ -37,8 +37,26 @@ T = torch.from_numpy
 
 
 def jinit(module, *args, **kw):
-    """Flax ``init`` under one jit (much faster on the CPU than op by op)."""
-    return jax.jit(functools.partial(module.init, **kw))(*args)["params"]
+    """A Flax tree of ``module``'s shapes (``jax.eval_shape`` of its
+    ``init``: traced, not compiled), kernels normal over √fan_in, embeddings
+    and codebooks normal over √features, everything else as Flax starts it
+    (biases 0; scales, gammas and the adaptive norms' bias 1;
+    the adaptive norms' kernel 0): `_perturb` then moves every leaf."""
+    rng = np.random.default_rng(len(jax.tree_util.tree_leaves(args)))
+
+    def leaf(path, s):
+        name = path[-1].key
+        adaptive = len(path) > 1 and path[-2].key == "to_weight"  # Flax: kernel 0, bias 1
+        if name == "kernel" and not adaptive:
+            return (rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(
+                np.float32)
+        if name in ("embedding", "codebook"):
+            return (rng.standard_normal(s.shape) / np.sqrt(s.shape[-1])).astype(np.float32)
+        fill = 1.0 if name in ("scale", "gamma") or (adaptive and name == "bias") else 0.0
+        return np.full(s.shape, fill, np.float32)
+
+    shapes = jax.eval_shape(functools.partial(module.init, **kw), *args)["params"]
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def japply(module, params, *args, **kw):

@@ -157,7 +157,14 @@ def decoder_tree():
     cfg = dict(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
                max_position=64)
     x = np.zeros((1, 4, 64), np.float32)
-    params = jax.jit(JLlamaDecoder(JLlamaConfig(**cfg)).init)(jax.random.key(0), x)["params"]
+    # Flax's shapes (traced by ``jax.eval_shape``, not compiled): kernels normal over
+    # sqrt(fan_in), norm scales 1
+    shapes = jax.eval_shape(JLlamaDecoder(JLlamaConfig(**cfg)).init, jax.random.key(0),
+                            x)["params"]
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, s: (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])).astype(np.float32)
+        if path[-1].key == "kernel" else np.ones(s.shape, np.float32), shapes)
     bf = jax.tree_util.tree_map(lambda p: jnp.asarray(p, jnp.bfloat16), params)
     return cfg, params, bf
 

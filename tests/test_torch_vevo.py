@@ -71,16 +71,47 @@ MEL = dict(sample_rate=16000, n_fft=64, win_size=64, hop_size=32, n_mel=8,
            fmax=8000.0)
 
 
-def jinit(module, *args, **kw):
-    """Flax ``init`` under one jit (much faster on the CPU than op by op)."""
-    return jax.jit(functools.partial(module.init, **kw))(*args)["params"]
-
-
-def _perturb(tree, seed, scale=0.05):
+def jfill(module, seed, *args, **kw):
+    """A Flax tree of ``module``'s shapes (``jax.eval_shape`` of its
+    ``init``: traced, not compiled) filled from a numpy seed: kernels normal
+    over √fan_in, biases and ConvNeXt gammas small, norm scales in [0.5,
+    1.5], embeddings normal over √features, codebooks normal."""
     rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda p: np.asarray(p) + scale * rng.standard_normal(p.shape).astype(np.float32),
-        jax.device_get(tree))
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            std = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+        elif name in ("bias", "gamma"):
+            std = 0.1
+        elif name == "scale":
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        elif name == "embedding":
+            std = 1.0 / np.sqrt(s.shape[-1])
+        else:
+            std = 1.0
+        return (std * rng.standard_normal(s.shape)).astype(np.float32)
+
+    shapes = jax.eval_shape(functools.partial(module.init, **kw), *args)["params"]
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+class JitApply:
+    """A Flax module whose ``apply`` runs under one jit per method, as a
+    served front end runs it (eager Flax dispatches op by op: seconds a call
+    on the CPU); every other attribute is the module's."""
+
+    def __init__(self, module):
+        self.module, self._fns = module, {}
+
+    def apply(self, variables, *args, method=None):
+        if method not in self._fns:
+            self._fns[method] = jax.jit(
+                lambda v, *a: self.module.apply(v, *a, method=method))
+        return self._fns[method](variables, *args)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
 
 
 @pytest.fixture(scope="module")
@@ -88,8 +119,8 @@ def fm_pair():
     jm = JFMT(JFMTConfig(**FM))
     tok = jnp.zeros((1, 10), jnp.int32)
     pmask = jnp.concatenate([jnp.ones((1, 4)), jnp.zeros((1, 6))], axis=1)
-    params = _perturb(jinit(jm, jax.random.key(0), jnp.zeros((1, 10, 8)), tok, pmask,
-                            jnp.ones((1, 10)), jax.random.key(1), method=JFMT.loss), 7)
+    params = jfill(jm, 7, jax.random.key(0), jnp.zeros((1, 10, 8)), tok, pmask,
+                   jnp.ones((1, 10)), jax.random.key(1), method=JFMT.loss)
     return jm, params, from_flax(FlowMatchingTransformer(FMTConfig(**FM)), params)
 
 
@@ -198,21 +229,22 @@ def test_fmt_inference_rejects_bad_solver_and_dtype(fm_pair):
 
 @pytest.fixture(scope="module")
 def timbre_pair(fm_pair):
-    """The JAX Vevo pipeline and its port, sharing (perturbed) weights."""
+    """The JAX Vevo pipeline and its port, sharing weights."""
     jm, fm_params, _ = fm_pair
     feats = jnp.zeros((1, 20, 8))
     jtok = JRepCodec(JRepCodecConfig(**TOK))
-    tok_params = _perturb(jinit(jtok, jax.random.key(2), feats), 8, 0.3)
+    tok_params = jfill(jtok, 8, jax.random.key(2), feats)
     jvoc = JVocos(JVocosConfig(**VOC))
-    voc_params = _perturb(jinit(jvoc, jax.random.key(3), feats), 9)
+    voc_params = jfill(jvoc, 9, jax.random.key(3), feats)
     jmel_cfg = JMelConfig(**MEL)
+    mel_jit = jax.jit(lambda a: jax_mel(a, jmel_cfg))
 
     def jssl(audio, sr):
         t = len(audio) // jmel_cfg.hop_size * jmel_cfg.hop_size
-        return np.asarray(jax_mel(jnp.asarray(audio[:t])[None], jmel_cfg))[0].T
+        return np.asarray(mel_jit(jnp.asarray(audio[:t])[None]))[0].T
 
     jpipe = JVevoPipeline(
-        content_tokenizer=None, style_tokenizer=jtok, ar=None, fm=jm, vocoder=jvoc,
+        content_tokenizer=None, style_tokenizer=JitApply(jtok), ar=None, fm=jm, vocoder=jvoc,
         params={"style_tokenizer": tok_params, "fm": fm_params, "vocoder": voc_params},
         hubert_extractor=jssl, mel_cfg=jmel_cfg)
     mel_cfg = MelConfig(**MEL)
@@ -306,13 +338,13 @@ def voice_pair(timbre_pair):
     """The timbre pair plus a content tokenizer (vocab 8) and an AR."""
     jpipe, pipe = timbre_pair
     jctok = JRepCodec(JRepCodecConfig(**CTOK))
-    ctok_params = _perturb(jinit(jctok, jax.random.key(4), jnp.zeros((1, 20, 8))), 10, 0.3)
+    ctok_params = jfill(jctok, 10, jax.random.key(4), jnp.zeros((1, 20, 8)))
     jar = JAR(JARConfig(**AR))
     toks = jnp.zeros((1, 5), jnp.int32)
-    ar_params = _perturb(jinit(jar, jax.random.key(5), toks, jnp.ones((1, 5)), toks,
-                               jnp.ones((1, 5)), method=JAR.forward), 11, 0.02)
+    ar_params = jfill(jar, 11, jax.random.key(5), toks, jnp.ones((1, 5)), toks,
+                      jnp.ones((1, 5)), method=JAR.forward)
     jvoice = JVevoPipeline(
-        content_tokenizer=jctok, style_tokenizer=jpipe.style_tokenizer, ar=jar,
+        content_tokenizer=JitApply(jctok), style_tokenizer=jpipe.style_tokenizer, ar=jar,
         fm=jpipe.fm, vocoder=jpipe.vocoder,
         params={**jpipe.params, "content_tokenizer": ctok_params, "ar": ar_params},
         hubert_extractor=jpipe.hubert_extractor, mel_cfg=jpipe.mel_cfg)
