@@ -38,13 +38,18 @@ class SegmentAudioDataset:
         return self._cache[i]
 
     def __getitem__(self, i: int) -> dict:
+        return self.segment(i, self._rng)
+
+    def segment(self, i: int, rng: np.random.Generator) -> dict:
+        """Utterance ``i``'s segment, a longer clip cropped at an offset
+        drawn from ``rng``."""
         x = self.audio(i)
         seg = self.segment_samples
         if len(x) <= seg:
             out = np.zeros(seg, np.float32)
             out[: len(x)] = x
         else:
-            start = int(self._rng.integers(0, len(x) - seg))
+            start = int(rng.integers(0, len(x) - seg))
             out = x[start: start + seg]
         return {"audio": out, "uid": self.utts[i].uid}
 

@@ -19,7 +19,10 @@ codec's ``(k−1−⌈r/2⌉, k−1−⌊r/2⌋)`` with k = 2r is asymmetric for
 
 `WNConv1d` takes Flax's ``"SAME"`` padding at stride 1 (the default), or a
 stride and an explicit ``(left, right)`` padding (the codec's strided
-encoder convolutions).
+encoder convolutions, the MSD's grouped ones).
+
+`WNConv2d` is the GAN discriminators' 2-D convolution (MPD, MRD), in
+torch's layout (B, C, H, W) in and out, with a symmetric padding per axis.
 """
 
 from __future__ import annotations
@@ -40,23 +43,27 @@ def _normalized(v: torch.Tensor, scale: torch.Tensor, dims: tuple[int, ...],
 class WNConv1d(nn.Module):
     """Flax ``WeightNorm(Conv(out, (k,), kernel_dilation=(d,), padding="SAME"))``,
     or with ``stride`` and ``padding=(left, right)``
-    ``WeightNorm(Conv(out, (k,), strides=(stride,), padding=[padding]))``.
+    ``WeightNorm(Conv(out, (k,), strides=(stride,), padding=[padding],
+    feature_group_count=groups))``.
 
-    ``weight`` (out, in, k) is the unnormalised kernel, ``scale`` (out,)."""
+    ``weight`` (out, in/groups, k) is the unnormalised kernel, ``scale``
+    (out,)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  dilation: int = 1, stride: int = 1,
-                 padding: tuple[int, int] | None = None):
+                 padding: tuple[int, int] | None = None, groups: int = 1):
         super().__init__()
         self.dilation = dilation
         self.stride = stride
+        self.groups = groups
         if padding is None:  # "SAME"; at stride 1 only
             if stride != 1:
                 raise ValueError("WNConv1d: a strided convolution takes an explicit padding")
             span = dilation * (kernel_size - 1)
             padding = (span // 2, span - span // 2)
         self.padding = tuple(padding)
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups,
+                                               kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale = nn.Parameter(torch.ones(out_channels))
         nn.init.normal_(self.weight)
@@ -64,8 +71,30 @@ class WNConv1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _normalized(self.weight, self.scale, (1, 2), 0)
         xs = F.pad(x.transpose(1, 2), self.padding)
-        return F.conv1d(xs, w, self.bias, stride=self.stride,
-                        dilation=self.dilation).transpose(1, 2)
+        return F.conv1d(xs, w, self.bias, stride=self.stride, dilation=self.dilation,
+                        groups=self.groups).transpose(1, 2)
+
+
+class WNConv2d(nn.Module):
+    """Flax ``WeightNorm(Conv(out, (kh, kw), strides=stride, padding=((ph,
+    ph), (pw, pw))))`` on (B, C, H, W) tensors.
+
+    ``weight`` (out, in, kh, kw) is the unnormalised kernel, ``scale``
+    (out,)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0)):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.scale = nn.Parameter(torch.ones(out_channels))
+        nn.init.normal_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = _normalized(self.weight, self.scale, (1, 2, 3), 0)
+        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
 
 
 class WNConvTranspose1d(nn.Module):

@@ -7,6 +7,11 @@ real FFT in shared memory, which takes n_fft a power of two from 256 to
 2048; on a CPU tensor it runs `log_mel_ref`, the same function as a direct
 windowed DFT in plain PyTorch. `log_mel_f64` is that arithmetic in float64,
 the yardstick both are held against on the card.
+
+`log_mel` has no backward: under grad, on an input that requires grad, it
+raises on the card. `LogMelFn` is the differentiable form, with JAX's rule
+(`_mel_pallas_bwd`): its forward is `log_mel`, its backward autograd of
+`log_mel_ref`.
 """
 
 from __future__ import annotations
@@ -24,12 +29,20 @@ MEL = Kernel("mel", {"mel_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, Fl
 N_FFT_RANGE = (256, 2048)  # the kernel's n_fft: a power of two in this range
 
 
+@functools.lru_cache(maxsize=8)
+def _device_dft_basis(n_fft: int, win_size: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # cached: a normal tensor whoever asks first
+        return torch.from_numpy(_dft_kernel(n_fft, win_size)).to(device)
+
+
 def log_mel_ref(y: torch.Tensor, fbank: torch.Tensor, n_fft: int, hop: int,
                 win_size: int, clip_val: float) -> torch.Tensor:
-    """Plain version: pad, frame, windowed DFT, magnitude, mel, log."""
+    """Plain version: pad, frame, windowed DFT, magnitude, mel, log. The DFT
+    basis is kept on the device, so a CUDA graph can capture the function
+    and its backward."""
     pad = (n_fft - hop) // 2
     frames = _reflect_pad(y.float(), pad).unfold(-1, n_fft, hop)  # (B, N, n_fft)
-    basis = torch.from_numpy(_dft_kernel(n_fft, win_size)).to(y.device)
+    basis = _device_dft_basis(n_fft, win_size, y.device)
     spec = torch.einsum("bnt,ct->bcn", frames, basis)  # (B, 2F, N)
     f = n_fft // 2 + 1
     re, im = spec[:, :f], spec[:, f:]
@@ -142,3 +155,24 @@ def log_mel(y: torch.Tensor, fbank: torch.Tensor, n_fft: int, hop: int,
                weights.data_ptr(), out.data_ptr(), b, t, n, n_fft, hop, pad, tap0, ntaps,
                n_mel, float(clip_val), stream)
     return out
+
+
+class LogMelFn(torch.autograd.Function):
+    """`log_mel` with JAX's VJP (`mel_spectrogram_pallas`'s custom VJP): the
+    forward is `log_mel` (kernel 3 on the card), the backward autograd of
+    `log_mel_ref` on the saved signal. The filterbank gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, y, fbank, n_fft, hop, win_size, clip_val):
+        ctx.save_for_backward(y, fbank)
+        ctx.args = (n_fft, hop, win_size, clip_val)
+        return log_mel(y, fbank, n_fft, hop, win_size, clip_val)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, fbank = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = y.detach().requires_grad_()
+            out = log_mel_ref(leaf, fbank, *ctx.args)
+        (dy,) = torch.autograd.grad(out, leaf, g)
+        return dy, None, None, None, None, None

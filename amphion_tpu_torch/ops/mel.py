@@ -4,8 +4,10 @@ Same conventions as the JAX module: Slaney-normalised triangular
 filterbank, reflect padding of ``(n_fft - hop)/2`` with center=False,
 magnitude floor ``sqrt(. + 1e-6)``, ``log(clamp(x, clip))``, then the
 config's dataset-level mean/var. `mel_spectrogram` runs the fused CUDA
-kernel (`ops/kernels/csrc/mel.cu`) on a CUDA tensor; `mel_spectrogram_ref`
-is the plain version, equal to the JAX ``mel_spectrogram_xla``.
+kernel (`ops/kernels/csrc/mel.cu`) on a CUDA tensor, through `LogMelFn`
+when autograd needs the signal's gradient (a GAN's mel loss);
+`mel_spectrogram_ref` is the plain version, equal to the JAX
+``mel_spectrogram_xla``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from amphion_tpu_torch.ops.kernels.mel import log_mel, log_mel_ref
+from amphion_tpu_torch.ops.kernels.mel import LogMelFn, log_mel, log_mel_ref
 
 
 @dataclass(frozen=True)
@@ -119,10 +121,15 @@ def _as_batch(y: torch.Tensor) -> torch.Tensor:
 def mel_spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """Log-mel of (B, T) or (T,) float waveforms → (B, n_mel, T // hop).
 
-    Runs the fused kernel on a CUDA tensor, its plain version on the CPU."""
+    Runs the fused kernel on a CUDA tensor, its plain version on the CPU;
+    differentiable in ``y`` (`LogMelFn`: the kernel forward, the plain
+    version's backward)."""
     y = _as_batch(y)
-    mel = log_mel(y, _fbank(cfg, y.device), cfg.n_fft, cfg.hop_size,
-                  cfg.win_size, cfg.clip_val)
+    args = (_fbank(cfg, y.device), cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
+    if torch.is_grad_enabled() and y.requires_grad:
+        mel = LogMelFn.apply(y, *args)
+    else:
+        mel = log_mel(y, *args)
     return _standardize(mel, cfg)
 
 

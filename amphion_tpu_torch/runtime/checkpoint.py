@@ -6,10 +6,11 @@ Directory names carry epoch, step and loss as in JAX
 ``keep_last`` lists choose what is kept, with a ``ckpts.json`` ledger beside
 the checkpoints and deletion only of names no stride retains. A checkpoint
 directory holds one ``state.pt``: `torch.save` of the train state's model,
-optimizer and generator states with its step, epoch and the number of
-batches of that epoch already consumed (so a resume continues inside the
-epoch). The JAX package writes Orbax directories, which the port cannot
-read: restoring one raises and says so.
+optimizer and generator states (of each named state, for `TrainStates`)
+with its step, epoch and the number of batches of that epoch already
+consumed (so a resume continues inside the epoch). The JAX package writes
+Orbax directories, which the port cannot read: restoring one raises and
+says so.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ class CheckpointManager:
 
     def save(self, state, epoch: int, step: int, loss: float,
              batch_in_epoch: int = 0) -> str | None:
-        """Write ``state`` (a `TrainState`) under the strides that take
-        ``epoch``; returns the directory, or None when no stride does."""
+        """Write ``state`` (a `TrainState` or `TrainStates`) under the
+        strides that take ``epoch``; returns the directory, or None when no
+        stride does."""
         hit = [i for i, s in enumerate(self.strides) if epoch % s == 0]
         if not hit:
             return None
@@ -107,12 +109,11 @@ class CheckpointManager:
 
     def restore(self, state, checkpoint_path: str | None = None,
                 resume_type: str = "resume") -> tuple[object, int, int, int]:
-        """Restore the whole train state (``resume``) or the model's weights
-        only (``finetune``) in place → (state, epoch, step, batches of the
-        epoch already consumed)."""
+        """Restore the whole train state (``resume``) or the models' weights
+        only (``finetune``) in place, a `TrainState` or `TrainStates` →
+        (state, epoch, step, batches of the epoch already consumed)."""
         if resume_type not in ("resume", "finetune"):
             raise ValueError(f"resume_type {resume_type!r} is not resume/finetune")
-        device = next(state.model.parameters()).device
-        saved, epoch, step = self.restore_raw(checkpoint_path, map_location=device)
+        saved, epoch, step = self.restore_raw(checkpoint_path, map_location=state.device)
         state.load_state_dict(saved, weights_only=resume_type == "finetune")
         return state, epoch, step, int(saved.get("batch_in_epoch", 0))

@@ -1,6 +1,8 @@
-"""The Vevo trainers' optimizer (port of the chain that `bins/vc/train.py`
+"""The trainers' optimizer (port of the chain that `bins/vc/train.py`
 builds, ``optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(lr))``,
-and of `maybe_accumulate` in `amphion_tpu/runtime/optimizers.py`).
+of the GAN vocoders' ``optax.adamw(optax.exponential_decay(lr, 1000,
+0.999), b1, b2)`` (`models/vocoders/gan_trainer.make_optimizer`), and of
+`maybe_accumulate` in `amphion_tpu/runtime/optimizers.py`).
 
 optax's defaults are kept where they differ from PyTorch's:
 
@@ -12,6 +14,8 @@ optax's defaults are kept where they differ from PyTorch's:
   and otherwise computes ``g / norm * max_norm``;
   ``torch.nn.utils.clip_grad_norm_`` multiplies by ``max_norm / (norm +
   1e-6)`` whenever the norm exceeds it.
+- ``optax.exponential_decay`` (``staircase=False``) gives the n-th update
+  (n = 0 first) the rate ``lr · decay_rate^(n / transition_steps)``.
 - ``optax.MultiSteps`` averages the k micro-steps' gradients (a running
   mean) and applies the update on the k-th; the others leave the
   parameters as they are.
@@ -38,28 +42,42 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 
 
 class ClipAdamW:
-    """``chain(clip_by_global_norm(max_norm), adamw(lr))`` with optax's
-    defaults over ``params``; `apply` takes one gradient per parameter."""
+    """``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2))`` with
+    optax's defaults over ``params``, the schedule
+    ``exponential_decay(lr, decay_steps, decay_rate)`` (a constant ``lr`` at
+    the default ``decay_rate`` 1); ``max_norm=None`` leaves out the clip.
+    `apply` takes one gradient per parameter."""
 
-    def __init__(self, params, lr: float, max_norm: float = 1.0):
+    def __init__(self, params, lr: float, max_norm: float | None = 1.0,
+                 betas: tuple[float, float] = OPTAX_ADAMW["betas"],
+                 decay_rate: float = 1.0, decay_steps: int = 1):
         self.params = list(params)
         self.max_norm = max_norm
-        self.adamw = torch.optim.AdamW(self.params, lr=lr, **OPTAX_ADAMW)
+        self.lr, self.decay_rate, self.decay_steps = lr, decay_rate, decay_steps
+        self.count = 0  # updates applied
+        self.adamw = torch.optim.AdamW(self.params, lr=lr,
+                                       **{**OPTAX_ADAMW, "betas": tuple(betas)})
 
     def apply(self, grads: list[torch.Tensor]) -> None:
-        """Clip ``grads`` (in place) and take one AdamW step."""
-        clip_by_global_norm_(grads, self.max_norm)
+        """Clip ``grads`` (in place) and take one AdamW step at the
+        schedule's rate."""
+        if self.max_norm is not None:
+            clip_by_global_norm_(grads, self.max_norm)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.lr * self.decay_rate ** (self.count / self.decay_steps)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adamw.step()
         for p in self.params:
             p.grad = None
+        self.count += 1
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict()}
+        return {"adamw": self.adamw.state_dict(), "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
+        self.count = state.get("count", 0)  # absent where the rate was constant
 
 
 class MultiSteps:

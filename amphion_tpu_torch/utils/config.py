@@ -85,3 +85,8 @@ def load_config(path: str | os.PathLike) -> dict:
         cfg = override_config(load_config(_resolve_base_path(base_ref, path)),
                               cfg)
     return cfg
+
+
+def save_config(path: str | os.PathLike, cfg: dict) -> None:
+    """Write a resolved config as plain JSON."""
+    Path(path).write_text(json.dumps(cfg, indent=2))

@@ -7,10 +7,11 @@ module's parameters finds each one's leaf in the tree by its dotted path
 
 - Linear ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
 - Conv1d ``kernel`` (k, in/groups, out) → ``weight`` (out, in/groups, k);
-- weight-normalised convolutions (`WNConv1d`, `WNConvTranspose1d`): the
-  kernel as a Conv's, a ConvTranspose's (k, in, out) → (in, out, k)
-  reversed along k; the ``scale`` from the one sibling ``WeightNorm_*``
-  scope that holds the leaf ``"<conv name>/kernel/scale"``;
+- weight-normalised convolutions (`WNConv1d`, `WNConv2d`,
+  `WNConvTranspose1d`): the kernel as a Conv's (a 2-D one's (kh, kw,
+  in/groups, out) → (out, in/groups, kh, kw)), a ConvTranspose's (k, in,
+  out) → (in, out, k) reversed along k; the ``scale`` from the one sibling
+  ``WeightNorm_*`` scope that holds the leaf ``"<conv name>/kernel/scale"``;
 - LayerNorm ``scale`` → ``weight``; Embedding ``embedding`` → ``weight``;
 - any other parameter (RMSNorm ``scale``, ConvNeXt ``gamma``, a VQ
   ``codebook``, MaskGCT's ``mask_emb``) carries over under its own name;
@@ -44,7 +45,7 @@ from amphion_tpu_torch.models.tts.maskgct.maskgct import MaskGCTS2A, MaskGCTT2S
 from amphion_tpu_torch.modules.activations import Snake, SnakeBeta
 from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
 from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
-from amphion_tpu_torch.modules.weight_norm import WNConv1d, WNConvTranspose1d
+from amphion_tpu_torch.modules.weight_norm import WNConv1d, WNConv2d, WNConvTranspose1d
 from amphion_tpu_torch.ops.kernels.int4_matmul import pack_int4
 
 
@@ -76,12 +77,14 @@ def _weight_norm_scale(tree: dict, path: list[str]) -> np.ndarray:
 
 def _flax_leaf(module: nn.Module, tree: dict, path: list[str], pname: str):
     """The Flax array for parameter ``pname`` of ``module``, in torch layout."""
-    if isinstance(module, (WNConv1d, WNConvTranspose1d)):
+    if isinstance(module, (WNConv1d, WNConv2d, WNConvTranspose1d)):
         if pname == "scale":
             return _weight_norm_scale(tree, path)
         if pname == "bias":
             return _leaf(tree, path, "bias")
-        kernel = _leaf(tree, path, "kernel")  # (k, in, out)
+        kernel = _leaf(tree, path, "kernel")  # (k, in, out) or (kh, kw, in, out)
+        if isinstance(module, WNConv2d):
+            return kernel.transpose(3, 2, 0, 1)
         if isinstance(module, WNConv1d):
             return kernel.transpose(2, 1, 0)
         return kernel.transpose(1, 2, 0)[:, :, ::-1]
@@ -143,7 +146,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
     - Conv (``nn.Conv1d``): kernel lecun_normal (fan_in = in/groups · k),
       bias 0;
     - weight-normalised Conv and ConvTranspose: kernel lecun_normal
-      (fan_in = in · k for both, as Flax counts it), bias 0, scale 1;
+      (fan_in = in/groups · k, or in/groups · kh · kw, for a Conv and in · k
+      for a ConvTranspose, as Flax counts it), bias 0, scale 1;
     - Snake and SnakeBeta: α (and β) 0 in log scale, else 1;
     - Embed (``nn.Embedding``): normal with std 1/√features;
     - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
@@ -168,9 +172,10 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(sub.weight, fan_in, g)
             if sub.bias is not None:
                 nn.init.zeros_(sub.bias)
-        elif isinstance(sub, (WNConv1d, WNConvTranspose1d)):
-            w = sub.weight  # (out, in, k) or (in, out, k)
-            fan_in = w.shape[2] * (w.shape[1] if isinstance(sub, WNConv1d) else w.shape[0])
+        elif isinstance(sub, (WNConv1d, WNConv2d, WNConvTranspose1d)):
+            w = sub.weight  # (out, in/g, k...) or, transposed, (in, out, k)
+            transposed = isinstance(sub, WNConvTranspose1d)
+            fan_in = w.shape[0] * w.shape[2] if transposed else w[0].numel()
             _lecun_normal_(w, fan_in, g)
             nn.init.zeros_(sub.bias)
             nn.init.ones_(sub.scale)

@@ -38,6 +38,16 @@ at the full width of ``config/vevo.json`` with random weights from
   (mel kernel, anti-aliased SnakeBeta kernel in all 73 activations), a
   small generator on the card against the CPU, and Snake's kernel driven
   through ``Snake(use_pallas=True)``;
+- BigVGAN GAN training at the width and batch of
+  ``egs/vocoder/gan/bigvgan/exp_config.json`` (MPD + MSD, 16 x 64 frames)
+  through `amphion_tpu_torch.bins.vocoder.train.main`: 8 float32 steps on
+  a synthetic corpus with a checkpoint at step 4 and a resume from it that
+  must repeat steps 5-8 (kernel 2 in both generator forwards, 146 a step;
+  kernel 3 three times a step, once under grad through `LogMelFn`), the
+  trained checkpoint through the vocoder inference CLI, `LogMelFn` on the
+  step's own input, a profiled step pair and both backwards timed; two
+  steps of ``egs/vocoder/gan/bigvgan_large`` (MPD + MRD); and a small GAN
+  step on the card against the CPU;
 - MaskGCT zero-shot TTS as `bins/serve.py` serves it by default, at the
   width of ``egs/tts/MaskGCT/exp_config.json`` (T2S and S2A 1024 x 16
   layers in bf16, the Amphion codec, the mel semantic front end): port
@@ -84,7 +94,7 @@ of each trainer and one 10 s copy synthesis. Run from the repository root:
     python3 chip_smoke.py [--seed 0] [--max-new 384]
 
 ``--max-new`` is the voice window batches' AR depth; the voice engine runs
-stop at ``ENGINE_MAX_NEW`` (256) steps and VALL-E's at ``VALLE_MAX_NEW``
+stop at ``ENGINE_MAX_NEW`` (192) steps and VALL-E's at ``VALLE_MAX_NEW``
 (384), cuts made for the run's time. Exits nonzero on any failure, and at
 once when there is no CUDA card. The
 last three lines of standard output are the ``{"kernels": [...]}`` timing
@@ -1192,7 +1202,7 @@ def padding_phase(v8: dict) -> dict:
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_STEP = 4, 64, 64  # bins/serve.py: --slots, --chunk, --len_step
 # the staggered engine runs of the voice pipeline (graph engine, eager engine
 # and four solo decodes a dtype): cut below --max-new for the run's time
-ENGINE_MAX_NEW = 256
+ENGINE_MAX_NEW = 192
 INVARIANT_ROWS = (1, 2, 4, 8)
 ENGINE_GROUPS = [("int8_gemv", ("gemv_kernel", "::Int8,")),
                  ("int4_gemv", ("gemv_kernel", "::Int4,")),
@@ -2772,6 +2782,562 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
     return out
 
 
+# -- GAN vocoder training: bins/vocoder/train.py (kernels 2 and 3 under grad) ------
+
+GAN_STEPS, GAN_SAVE = 8, 4
+GAN_CLIPS = 32  # 0.5-1 s each: longer than a 64-frame segment, so crops are drawn
+GAN_AA_PER_STEP = 2 * AA_PER_FORWARD  # 146: the D step's generator forward and the G step's
+GAN_MEL_PER_STEP = 3  # the batch's conditioning mel, mel_loss's real and (LogMelFn) fake
+GAN_LARGE_CONFIG = "egs/vocoder/gan/bigvgan_large/exp_config.json"
+GAN_LARGE_AA_PER_FORWARD = 6 * 18 + 1  # six stages of 18 activations, plus the last
+GAN_LARGE_STEPS = 2
+GAN_KEYS = ("d_loss", "g_loss", "g_adv", "g_fm", "g_mel")
+# operations per element of kernel 2's backward as the step runs it (autograd
+# of the unfused chain, `AASnakeBetaFn.backward`): the up FIRs recomputed (24),
+# the activation and its derivative in x, alpha and beta on both phases
+# (2 x 12), the transposed down FIR (24) and up FIR (24)
+AA_BWD_OPS = 96
+GAN_GROUPS = [("aa_snake", "aa_snake_kernel"), ("mel", "mel_kernel"),
+              ("adamw", "multi_tensor_apply")]
+# the small float32 GAN held card vs CPU (the mel kernel takes n_fft 256 to 2048)
+GAN_SMALL = {
+    "mel": dict(sample_rate=16000, n_fft=256, win_size=128, hop_size=16, n_mel=32, fmax=8000),
+    "gen": dict(n_mel=32, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1, 3),), use_pallas_act=True),
+    "disc": dict(use=("mpd", "msd", "mrd"), mpd_periods=(2, 3), msd_scales=2,
+                 channel_mult=0.25, mrd_resolutions=((256, 32, 128),)),
+}
+
+
+def gan_corpus(root, seed: int, n: int = GAN_CLIPS) -> None:
+    """``n`` 24 kHz clips of 0.5-1 s and their train.json."""
+    from amphion_tpu_torch.data.audio_io import save_wav
+    from amphion_tpu_torch.data.metadata import Utterance, save_metadata
+
+    rng = np.random.default_rng(seed + 41)
+    utts = []
+    for i in range(n):
+        sec = float(rng.uniform(0.5, 1.0))
+        path = root / "wav" / f"{i:02d}.wav"
+        save_wav(path, synth_audio(rng, sec), SR)
+        utts.append(Utterance("smoke", f"clip{i:02d}", str(path), sec))
+    save_metadata(root / "data" / "smoke" / "train.json", utts)
+
+
+def gan_config(root, name: str, base: str = VOC_CONFIG, **train) -> str:
+    """``base`` (an egs vocoder recipe, at its width and batch) over the
+    smoke corpus, with a log dir and a metrics file under ``root`` and the
+    ``train`` overrides."""
+    cfg = {"base_config": os.path.abspath(base), "dataset": ["smoke"],
+           "log_dir": str(root / "ckpts"), "preprocess": {"processed_dir": str(root / "data")},
+           "train": {"log_interval": 1, "metrics_path": str(root / f"{name}.jsonl"), **train}}
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def gan_launches(kernels: dict, steps: int, aa_per_forward: int = AA_PER_FORWARD):
+    """The run's launch counts against those worked out beforehand: kernel 2
+    in both generator forwards of a step, kernel 3 three times a step, no
+    other kernel (each epoch's batches are all consumed)."""
+    got = {name: k.launches for name, k in kernels.items()}
+    want = {name: 0 for name in kernels}
+    want.update(aa_snake=2 * aa_per_forward * steps, mel=GAN_MEL_PER_STEP * steps)
+    return got == want, f"{got} (predicted {want}: {steps} steps)"
+
+
+class GANBackwards:
+    """While active, the backward of `AASnakeBetaFn` (kernel 2's: autograd
+    of the unfused chain) and of `LogMelFn` (kernel 3's: autograd of
+    `log_mel_ref`) each run in a ``record_function`` range (``aa_chain_bwd``,
+    ``mel_bwd``), where the profiler finds their device time; with
+    ``record`` the inputs and gradients of every LogMelFn call and of the
+    first AASnakeBetaFn call at each shape are kept."""
+
+    RANGES = {"AASnakeBetaFn": "aa_chain_bwd", "LogMelFn": "mel_bwd"}
+
+    def __init__(self, record: bool = False):
+        self.record = record
+        self.mel, self.aa = [], {}
+
+    def __enter__(self) -> "GANBackwards":
+        from amphion_tpu_torch.ops.kernels.aa_snake import AASnakeBetaFn
+        from amphion_tpu_torch.ops.kernels.mel import LogMelFn
+
+        self.saved = []
+        for cls in (AASnakeBetaFn, LogMelFn):
+            orig = cls.__dict__["backward"]
+            self.saved.append((cls, orig))
+            cls.backward = staticmethod(functools.partial(self._backward, orig.__func__,
+                                                          cls.__name__))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, orig in self.saved:
+            cls.backward = orig
+
+    def _backward(self, fn, kind: str, ctx, g):
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function(self.RANGES[kind]):
+            grads = fn(ctx, g)
+        if self.record:
+            keep = [t.detach().clone() for t in saved]
+            if kind == "LogMelFn":
+                self.mel.append((keep[0], g.detach().clone(), grads[0].detach().clone(),
+                                 ctx.args))
+            elif tuple(keep[0].shape) not in self.aa:
+                self.aa[tuple(keep[0].shape)] = (keep, g.detach().clone())
+        return grads
+
+
+def gan_profile(trainer, batches: list, median_step_s: float) -> dict:
+    """Steps of ``trainer`` on ``batches`` (made beforehand) under
+    torch.profiler (host and device activity, the backward ranges of
+    `GANBackwards`): wall, device-busy share (of the profiled wall and of
+    the unprofiled median step) and device time by group: cuDNN
+    convolutions, kernel 2, its chain backward, kernel 3, the mel backward,
+    the AdamW updates and the other (elementwise, reductions, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    states = trainer.loop.states
+    torch.cuda.synchronize()
+    with GANBackwards(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            states, _ = trainer.loop.train_step(states, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device records: kernels, copies and sets; the GPU-side spans of host
+    # ranges (record_function, the optimizer's step) carry a host op's name
+    # and are left out, and a record the trace lists twice counts once
+    host_names = {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU}
+    spans, seen, streams = [], set(), {}
+    for e in prof.profiler.kineto_results.events():
+        key = (e.name(), e.start_ns(), e.duration_ns())
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in host_names
+                and key not in seen):
+            seen.add(key)
+            spans.append(key)
+            sid = str(e.device_resource_id()) if hasattr(e, "device_resource_id") else "?"
+            rec = streams.setdefault(sid, [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.duration_ns() / 1e6
+    by_name = {}
+    for name, _, dur in spans:
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+    # the busy time is the union of the records' intervals; where records
+    # overlap (other streams), the part of each that starts under an earlier
+    # one is counted by kernel name
+    union_ns, end, overlap = 0, -1, {}
+    for name, start, dur in sorted(spans, key=lambda x: x[1]):
+        if start < end:
+            overlap[name] = overlap.get(name, 0.0) + (min(end, start + dur) - start) / 1e6
+        if start + dur > end:
+            union_ns += start + dur - max(start, end)
+            end = start + dur
+    n_records = len(spans)
+    in_range = {name: {} for name in GANBackwards.RANGES.values()}
+
+    def collect(evt, acc):
+        for k in evt.kernels:
+            acc[k.name] = acc.get(k.name, 0.0) + k.duration
+        for ch in evt.cpu_children:
+            collect(ch, acc)
+
+    for evt in prof.events():
+        if evt.name in in_range:
+            collect(evt, in_range[evt.name])
+    groups = {"convolutions": 0.0, "aa_snake": 0.0, "aa_chain_bwd": 0.0, "mel": 0.0,
+              "mel_bwd": 0.0, "adamw": 0.0, "other": 0.0}
+    rest = dict(by_name)
+    for rng_name, acc in in_range.items():
+        for name, us in acc.items():
+            groups[rng_name] += us
+            rest[name] = rest.get(name, 0.0) - us
+    for name, us in rest.items():
+        group = next((g for g, pat in GAN_GROUPS if pat in name), None)
+        if group is None:
+            group = ("convolutions" if any(t in name.lower() for t in CONV_NAMES)
+                     else "other")
+        groups[group] += us
+    n = len(batches)
+    busy = union_ns / 1e9  # the time at least one device record ran
+    total = sum(groups.values()) / 1e6
+    check("gan trace", busy > 0 and all(groups[r] > 0 for r in in_range),
+          f"device busy {busy:.4g} s (records summed {total:.4g} s) in {n_records} records; "
+          "the backward ranges " + ", ".join(f"{r} {groups[r] / 1e3:.3f} ms" for r in in_range))
+    top = sorted(((us, nm[:80]) for nm, us in by_name.items()), reverse=True)
+    return {"steps": n, "wall_s": wall, "device_busy_s": busy, "device_records_summed_s": total,
+            "device_busy_share": busy / wall,
+            "device_busy_share_of_median_step": busy / n / median_step_s,
+            "device_records": n_records,
+            "per_step_ms": {k: v / 1e3 / n for k, v in groups.items()},
+            "share_of_device_time": {k: v / 1e6 / max(total, 1e-12) for k, v in groups.items()},
+            "top_kernels_ms": [[nm, us / 1e3 / n] for us, nm in top[:8]],
+            "streams": {k: {"records": v[0], "ms_per_step": v[1] / n}
+                        for k, v in streams.items()},
+            "overlapped_ms_per_step": sorted(([nm[:80], ms / n] for nm, ms in overlap.items()),
+                                             key=lambda x: -x[1])[:6]}
+
+
+def gan_backward_timing(rec: GANBackwards, mel_cfg) -> dict:
+    """Kernel 3 forward at the step's (16, 7680) and both backwards on the
+    path's own inputs (the recorded calls), by CUDA-graph replays of
+    ``torch.autograd.grad`` on a retained graph (its forward run on the
+    capture stream), or by the profiler where a capture fails: the mel
+    backward (`LogMelFn.backward`: `log_mel_ref` recomputed and
+    differentiated) and kernel 2's chain backward at each of the four AMP
+    shapes, mean per launch over a forward's 73. Bounds: bytes over 3.35
+    TB/s or operations over 67 TFLOP/s float32, the larger; the mel
+    backward counts y, the cotangent and dy once and twice the forward's
+    operations, the chain backward x, g and dx once and AA_BWD_OPS an
+    element."""
+    from amphion_tpu_torch.ops.kernels.aa_snake import AASnakeBetaFn
+    from amphion_tpu_torch.ops.mel import _fbank, mel_spectrogram, mel_spectrogram_ref
+
+    def bwd_ms(make):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out, leaves, g = make()
+        torch.cuda.current_stream().wait_stream(side)
+        grad = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)  # noqa: E731
+        try:
+            return graph_ms(grad, iters=10, stream=side), "graph replays"
+        except Exception as exc:  # noqa: BLE001 - the profiler measures it instead
+            log(f"  backward capture failed ({type(exc).__name__}: {exc}); profiler time")
+            torch.cuda.synchronize()
+            return profiled_ms(grad), "profiler"
+
+    y, g, _, _ = rec.mel[0]
+    b, t = y.shape
+    fb = _fbank(mel_cfg, y.device)
+    flops_row, _, _ = mel_work([t], fb)
+    with torch.no_grad():
+        fwd_ms = graph_ms(lambda: mel_spectrogram(y, mel_cfg))
+        plain_ms = graph_ms(lambda: mel_spectrogram_ref(y, mel_cfg), iters=5)
+        lib_ms = graph_ms(lambda: library_mel(y, fb, mel_cfg.clip_val))
+    fwd_bytes = 4.0 * (b * t + g.numel())
+    fwd_bound = max(b * flops_row / PEAK_F32, fwd_bytes / HBM) * 1e3
+
+    def mel_leaves():
+        leaf = y.clone().requires_grad_()
+        return mel_spectrogram(leaf, mel_cfg), [leaf], g
+
+    m_ms, m_how = bwd_ms(mel_leaves)
+    m_ops, m_bytes = 2.0 * b * flops_row, 4.0 * (2 * b * t + g.numel())
+    mel = {"shape": [b, t], "forward_ms": fwd_ms, "forward_plain_ms": plain_ms,
+           "forward_library_ms": lib_ms,
+           "forward_bound_ms": fwd_bound,
+           "backward": {"ms": m_ms, "timing": m_how, "bound_ms": max(m_ops / PEAK_F32,
+                                                                     m_bytes / HBM) * 1e3,
+                        "bound_by": "operations" if m_ops / PEAK_F32 >= m_bytes / HBM
+                        else "bytes", "library_ms": None}}
+    per_shape = []
+    for shape, launches in zip(AMP_SHAPES, AMP_LAUNCHES):
+        (x, alpha, beta), gx = rec.aa[shape]
+
+        def aa_leaves(x=x, alpha=alpha, beta=beta, gx=gx):
+            leaves = [x.clone().requires_grad_(), alpha.clone().requires_grad_(),
+                      beta.clone().requires_grad_()]
+            return AASnakeBetaFn.apply(*leaves), leaves, gx
+
+        ms, how = bwd_ms(aa_leaves)
+        n = x.numel()
+        t_ops, t_bytes = AA_BWD_OPS * n / PEAK_F32, (12.0 * n + 16 * shape[2]) / HBM
+        per_shape.append({"shape": list(shape), "ms": ms, "timing": how,
+                          "bound_ms": max(t_ops, t_bytes) * 1e3,
+                          "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    w = AMP_LAUNCHES
+    aa = {"ms": sum(a * r["ms"] for a, r in zip(w, per_shape)) / sum(w),
+          "bound_ms": sum(a * r["bound_ms"] for a, r in zip(w, per_shape)) / sum(w),
+          "bound_by": max(("bytes", "operations"),
+                          key=lambda k: sum(r["bound_by"] == k for r in per_shape)),
+          "library_ms": None, "per_shape": per_shape,
+          "ms_is": "mean per launch over a forward's 73 at the step's AMP shapes"}
+    return {"mel": mel, "aa_chain_bwd": aa}
+
+
+def gan_train_phase(seed: int, kernels: dict) -> dict:
+    """BigVGAN GAN training at the width and batch of
+    egs/vocoder/gan/bigvgan/exp_config.json (512 channels, MPD + MSD, 16 x
+    64 frames) through the normal entry point,
+    `amphion_tpu_torch.bins.vocoder.train.main`, on a synthetic corpus: 8
+    steps in float32 with a checkpoint at step 4, then a resume from it that
+    must repeat steps 5-8's losses within 1e-5 relative; the launch counts
+    of both runs against the counts worked out beforehand (set to 0 just
+    before each run, read just after); a recorded step (LogMelFn on its own
+    input: the forward held to float64 within 1e-3 or no further than
+    `log_mel_ref`, the gradient equal to autograd of `log_mel_ref` to the
+    bit), two profiled steps, the backwards timed, and the trained
+    checkpoint read back through `restore_generator` and the vocoder
+    inference CLI. cuDNN runs deterministic algorithms throughout
+    (``cudnn.deterministic``): with its defaults (the step's weight
+    gradients ran `wgrad_alg0_engine`, an algorithm that sums with atomics)
+    the resumed losses moved by 2e-7 to 8.6e-6 relative in 4 steps, too
+    near the check's 1e-5 for the check to test the resume."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from amphion_tpu_torch.bins.vocoder import inference
+    from amphion_tpu_torch.bins.vocoder.train import main as train_main
+    from amphion_tpu_torch.data.audio_io import load_wav
+    from amphion_tpu_torch.ops.kernels.mel import log_mel, log_mel_f64, log_mel_ref
+    from amphion_tpu_torch.ops.mel import _fbank
+    from amphion_tpu_torch.runtime.vocoder_trainer import restore_generator
+    from amphion_tpu_torch.utils.config import load_config
+
+    root = Path(tempfile.mkdtemp(prefix="gan_"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gan_corpus(root, seed)
+        cfg = gan_config(root, "run", max_steps=GAN_STEPS, save_checkpoints_steps=GAN_SAVE)
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg, "--exp_name", "run"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_ok, launches_detail = gan_launches(kernels, GAN_STEPS)
+        launches = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        states = trainer.loop.states
+        n_g, n_d = (sum(p.numel() for p in states[s].model.parameters()) for s in ("g", "d"))
+        rows = metrics(root, "run")
+        log(f"gan train: BigVGAN {n_g / 1e6:.2f} M + MPD/MSD {n_d / 1e6:.2f} M params, "
+            f"float32 (cuDNN deterministic), batch {trainer.batch_size} x {trainer.dataset.segment_samples} samples; "
+            f"{GAN_STEPS} steps in {wall:.1f} s (build and checkpoints included); losses "
+            + json.dumps([{k: r[k] for k in GAN_KEYS} for r in rows]))
+        check("gan train losses", len(rows) == GAN_STEPS and all(
+            math.isfinite(r[k]) for r in rows for k in GAN_KEYS), f"{len(rows)} steps finite")
+        check("gan train launches", launches_ok, launches_detail)
+        med = statistics.median(r["step_s"] for r in rows[2:])
+        samples = trainer.batch_size * trainer.dataset.segment_samples
+        perf = {"median_step_s": med, "step_s": [r["step_s"] for r in rows],
+                "audio_samples_per_s": samples / med, "audio_s_per_s": samples / med / SR,
+                "max_memory_allocated_gib": peak}
+        log(f"gan train perf ({nvidia_smi()}): median step {med:.4f} s over steps 3-"
+            f"{GAN_STEPS}, {samples / med / SR:.2f} audio s/s of training ({samples} "
+            f"samples a step), peak {peak:.2f} GiB; " + json.dumps(perf))
+
+        # the trained checkpoint (step 8): restore_generator, then the inference CLI
+        ckdir = root / "ckpts" / "run" / "checkpoint"
+        snap = root / "ckpts" / "run" / "exp_config.json"
+        gen, _, _, step = restore_generator(load_config(snap), ckdir, 80, torch.device(DEV))
+        same = all(torch.equal(a, b) for a, b in zip(
+            gen.state_dict().values(), trainer.loop.states["g"].model.state_dict().values()))
+        wavs = root / "infer_in"
+        wavs.mkdir()
+        for i in (0, 1):
+            shutil.copy(root / "wav" / f"{i:02d}.wav", wavs / f"{i:02d}.wav")
+        out_dir = root / "infer_out"
+        recs = inference.main(["--config", str(snap), "--checkpoint_path", str(ckdir),
+                               "--output_dir", str(out_dir), "--mode", "from_audio",
+                               "--audio_dir", str(wavs)])
+        wav_ok = []
+        for r in recs:
+            wav, sr = load_wav(r["path"], sr=SR)
+            src, _ = load_wav(wavs / Path(r["path"]).name, sr=SR)
+            wav_ok.append(sr == SR and len(wav) == len(src) // HOP * HOP
+                          and bool(np.isfinite(wav).all()) and 0 < np.abs(wav).max() <= 1.0)
+        check("gan checkpoint through restore_generator and bins/vocoder/inference",
+              step == GAN_STEPS and same and len(recs) == 2 and all(wav_ok),
+              f"step {step}, weights equal to the trainer's {same}, {len(recs)} wavs "
+              f"well-formed {wav_ok}")
+        del gen
+
+        # one recorded step, then two profiled ones, on batches made beforehand
+        # (each a new crop draw; the counts were read above)
+        bs, n = trainer.batch_size, len(trainer.dataset)
+        batches = [trainer._make_batch([(i * bs + j) % n for j in range(bs)],
+                                       np.random.default_rng(seed + i)) for i in range(3)]
+        with GANBackwards(record=True) as rec:
+            states, _ = trainer.loop.train_step(states, batches[0])
+        torch.cuda.synchronize()
+        check("gan recorded step", len(rec.mel) == 1 and sorted(rec.aa) == sorted(AMP_SHAPES),
+              f"{len(rec.mel)} LogMelFn backward, kernel-2 backward shapes {sorted(rec.aa)}")
+        y, g, dy, args = rec.mel[0]
+        fb = _fbank(trainer.mel_cfg, y.device)
+        with torch.no_grad():
+            out, ref = log_mel(y, fb, *args), log_mel_ref(y, fb, *args)
+            f64 = log_mel_f64(y, fb, *args)
+        fwd_err = (out - ref).abs().max().item()
+        k64, p64 = ((x.double() - f64).abs().max().item() for x in (out, ref))
+        leaf = y.clone().requires_grad_()
+        (dref,) = torch.autograd.grad(log_mel_ref(leaf, fb, *args), leaf, g)
+        # a generator's output early in training leaves bands of tiny energy,
+        # where the log magnifies float32 rounding: both versions are held to
+        # float64, the kernel within 1e-3 or no further than the plain version
+        check("LogMelFn on the step's own input",
+              k64 <= max(1e-3, p64) and torch.equal(dy, dref),
+              f"{tuple(y.shape)}: forward (kernel 3) max|err| {fwd_err:.3g} against "
+              f"log_mel_ref; against float64: kernel {k64:.3g}, log_mel_ref {p64:.3g} (tol: "
+              f"the larger of 1e-3 and log_mel_ref's); gradient bit-equal to autograd of "
+              f"log_mel_ref {torch.equal(dy, dref)} (max|diff| "
+              f"{(dy - dref).abs().max().item():.3g})")
+        prof = gan_profile(trainer, batches[1:], med)
+        log(f"gan train trace ({nvidia_smi()}): " + json.dumps(prof))
+        timing = gan_backward_timing(rec, trainer.mel_cfg)
+        log(f"gan timing ({nvidia_smi()}): " + json.dumps(timing))
+        mel_fwd_err, mel_err_f64 = fwd_err, {"kernel": k64, "log_mel_ref": p64}
+        del rec, batches
+
+        # resume from the step-4 checkpoint, in a run directory of its own
+        step4 = next(p for p in ckdir.glob("epoch-*") if f"_step-{GAN_SAVE:07d}_" in p.name)
+        del trainer, states
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in kernels.values():
+            k.reset()
+        cfg2 = gan_config(root, "resume", max_steps=GAN_STEPS, save_checkpoints_steps=0)
+        again = train_main(["--config", cfg2, "--exp_name", "resume", "--resume",
+                            "--resume_from_ckpt_path", str(step4)])
+        resume_ok, resume_detail = gan_launches(kernels, GAN_STEPS - GAN_SAVE)
+        rerun = metrics(root, "resume")
+        first = rows[GAN_SAVE:]
+        rel = (max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(rerun, first) for k in GAN_KEYS)
+               if rerun else math.inf)
+        bit = all(a[k] == b[k] for a, b in zip(rerun, first) for k in GAN_KEYS)
+        check("gan train resume", len(rerun) == len(first) and rel <= 1e-5 and resume_ok,
+              f"steps {GAN_SAVE + 1}-{GAN_STEPS} from the step-{GAN_SAVE} checkpoint: max "
+              f"relative difference {rel:.3g} over {GAN_KEYS} (tol 1e-5), bit-equal {bit}; "
+              f"launches {resume_detail}")
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "perf": perf, "trace": prof, "timing": timing,
+            "mel_fwd_err": mel_fwd_err, "mel_fwd_err_f64": mel_err_f64,
+            "resume_bit_equal": bit}
+
+
+def gan_large_phase(seed: int, kernels: dict) -> dict:
+    """Two steps of egs/vocoder/gan/bigvgan_large/exp_config.json at its
+    published width and batch (BigVGAN 1536 channels, rates 4·4·2·2·2·2;
+    MPD + MRD; 8 x 32 frames of hop 256; n_fft 1024) through
+    `bins/vocoder/train.main`: MRD's one run on the card. Losses finite,
+    kernel 2 in both forwards of each step (109 a forward), kernel 3 three
+    times a step."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from amphion_tpu_torch.bins.vocoder.train import main as train_main
+
+    root = Path(tempfile.mkdtemp(prefix="gan_large_"))
+    try:
+        gan_corpus(root, seed, n=16)
+        cfg = gan_config(root, "large", base=GAN_LARGE_CONFIG, max_steps=GAN_LARGE_STEPS)
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg, "--exp_name", "large"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok, detail = gan_launches(kernels, GAN_LARGE_STEPS, GAN_LARGE_AA_PER_FORWARD)
+        rows = metrics(root, "large")
+        states = trainer.loop.states
+        n_g, n_d = (sum(p.numel() for p in states[s].model.parameters()) for s in ("g", "d"))
+        d_names = [type(m).__name__ for m in states["d"].model.subs]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check("gan bigvgan_large steps", len(rows) == GAN_LARGE_STEPS and all(
+            math.isfinite(r[k]) for r in rows for k in GAN_KEYS) and ok
+            and d_names == ["MultiPeriodDiscriminator", "MultiResolutionDiscriminator"],
+            f"BigVGAN {n_g / 1e6:.2f} M + {d_names} {n_d / 1e6:.2f} M params, batch "
+            f"{trainer.batch_size} x {trainer.dataset.segment_samples}: losses "
+            + json.dumps([{k: r[k] for k in GAN_KEYS} for r in rows])
+            + f"; steps {[r['step_s'] for r in rows]} s, {wall:.1f} s with the build and "
+            f"checkpoint, peak {peak:.2f} GiB; launches {detail}")
+        del trainer, states
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"step_s": [r["step_s"] for r in rows], "peak_gib": peak}
+
+
+def gan_reference_phase(seed: int) -> None:
+    """One D-then-G step of a small float32 GAN (BigVGAN 32 channels with
+    the fused activation, MPD + MSD + MRD at a quarter width; n_fft 256)
+    on the card and on the CPU from the same weights and batch: every loss
+    within 1e-4 relative, and each updated parameter's update within 1 % of
+    the learning rate of the CPU's for all but 1e-3 of the elements, none
+    further than 2.1 learning rates (Adam's first update is about the
+    gradient's sign: an element whose gradient is near 0 may flip)."""
+    import copy
+
+    from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
+    from amphion_tpu_torch.models.vocoders.gan_trainer import (
+        CombinedDiscriminator, GANTrainConfig, create_gan_states, make_gan_train_step)
+    from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram_ref
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    mel_cfg = MelConfig(**GAN_SMALL["mel"])
+    gen = torch.Generator().manual_seed(seed + 47)
+    g = init_like_flax(BigVGANGenerator(BigVGANConfig(**GAN_SMALL["gen"])), gen)
+    d = init_like_flax(CombinedDiscriminator(**GAN_SMALL["disc"]), gen)
+    with torch.no_grad():
+        for p in list(g.parameters()) + list(d.parameters()):
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    rng = np.random.default_rng(seed + 47)
+    audio = torch.from_numpy(np.stack([synth_audio(rng, 0.064) for _ in range(4)])[:, :1024])
+    mel = mel_spectrogram_ref(audio, mel_cfg).transpose(1, 2).contiguous()
+    res = {}
+    for dev in ("cpu", DEV):
+        gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+        gs, ds = create_gan_states(gd, dd, GANTrainConfig())
+        _, _, m = make_gan_train_step(mel_cfg)(gs, ds, {"audio": audio.to(dev),
+                                                        "mel": mel.to(dev)})
+        res[dev] = ({k: v.item() for k, v in m.items()},
+                    [p.detach().cpu() for p in list(gd.parameters()) + list(dd.parameters())])
+    rel = max(abs(res[DEV][0][k] - v) / abs(v) for k, v in res["cpu"][0].items())
+    lr = GANTrainConfig().lr
+    off = total = 0
+    worst = 0.0
+    for s, a, c in zip(list(g.parameters()) + list(d.parameters()), res[DEV][1], res["cpu"][1]):
+        diff = ((a - s.detach()) - (c - s.detach())).abs()
+        off += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+        worst = max(worst, diff.max().item())
+    check("reference: small f32 GAN step, card vs CPU",
+          rel <= 1e-4 and off <= 1e-3 * total and worst <= 2.1 * lr,
+          f"losses {res[DEV][0]} vs {res['cpu'][0]} (max rel {rel:.2g}, tol 1e-4); "
+          f"updates off by more than 1 % of lr: {off} of {total} (tol 1e-3), worst "
+          f"{worst / lr:.3g} lr (tol 2.1)")
+
+
+def gan_phase(seed: int, kernels: dict, rows: list) -> None:
+    """The GAN training phases; kernel 2's and kernel 3's rows of the
+    timing line get the training path's launches, times and backwards."""
+    gan_reference_phase(seed)
+    gan = gan_train_phase(seed, kernels)
+    gan_large_phase(seed, kernels)
+    t = gan["timing"]
+    row = next(r for r in rows if r["name"] == "mel_spectrogram")
+    row["gan_training"] = {
+        "launches": gan["launches"]["mel"], "launches_per_step": GAN_MEL_PER_STEP,
+        "shape": t["mel"]["shape"], "ms": t["mel"]["forward_ms"],
+        "plain_ms": t["mel"]["forward_plain_ms"], "bound_ms": t["mel"]["forward_bound_ms"],
+        "library_ms": t["mel"]["forward_library_ms"], "max_abs_err": gan["mel_fwd_err"],
+        "max_abs_err_vs_float64": gan["mel_fwd_err_f64"],
+        "backward": {**t["mel"]["backward"],
+                     "is": "LogMelFn.backward: autograd of log_mel_ref, no kernel"}}
+    row = next(r for r in rows if r["name"] == "aa_snake")
+    row["gan_training"] = {
+        "launches": gan["launches"]["aa_snake"], "launches_per_step": GAN_AA_PER_STEP,
+        "backward": {**t["aa_chain_bwd"],
+                     "is": "AASnakeBetaFn.backward: autograd of the unfused chain, no kernel"}}
+
+
 # -- MaskGCT: bins/serve.py's default backend (kernels 6, 3 and 1) -----------------
 
 MG_CONFIG = "egs/tts/MaskGCT/exp_config.json"
@@ -4229,6 +4795,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("vocoder")
+    gan_phase(args.seed, kernels, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("gan training")
     maskgct_reference_phase(args.seed)
     mg = maskgct_phase(args.seed, kernels)
     for r in rows:  # kernel 1's first model path

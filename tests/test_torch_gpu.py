@@ -505,9 +505,13 @@ def test_backwardless_wrappers_raise_under_grad(cuda):
     w_int, sc4 = quantize_weight_int4(w, 128)
     with pytest.raises(RuntimeError, match="no backward"):
         int4_matmul(x, pack_int4(w_int), sc4, 128)
+    from amphion_tpu_torch.ops.kernels.mel import log_mel
+    from amphion_tpu_torch.ops.mel import _fbank
+
     y = torch.randn((1, 24000), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        mel_spectrogram(y, MelConfig())
+    cfg = MelConfig()
+    with pytest.raises(RuntimeError, match="no backward"):  # mel_spectrogram: LogMelFn
+        log_mel(y, _fbank(cfg, y.device), cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
     q = torch.randn((1, 2, 64), device=cuda, requires_grad=True)
     ck = torch.zeros((1, 2, 16, 64), dtype=torch.int8, device=cuda)
     ks = torch.ones((1, 2, 16), device=cuda)
@@ -1085,3 +1089,94 @@ def test_mel_kernel_under_inference_mode(cuda):
     assert (out - ref).abs().max().item() <= 1e-3 and torch.equal(again, out)
     assert (log_mel_ref(y, fb, cfg.n_fft, cfg.hop_size, cfg.win_size, cfg.clip_val)
             - ref).abs().max().item() == 0.0
+
+
+
+# -- GAN vocoder training: LogMelFn (kernel 3 under grad) and a small step ---------
+
+
+@pytest.mark.parametrize("b,t", [(16, 7680), (2, 24000 + 37)])
+def test_log_mel_fn_forward_is_kernel_3_and_grad_is_plain_autograd(cuda, b, t):
+    """`mel_spectrogram` under grad runs kernel 3 once through `LogMelFn`:
+    the forward within 1e-3 of `log_mel_ref`, the signal's gradient equal
+    to the bit to autograd of `log_mel_ref` on the same inputs (the GAN
+    trainer's batch, 16 x 7680, and a ragged length)."""
+    from amphion_tpu_torch.ops.kernels.mel import log_mel_ref
+    from amphion_tpu_torch.ops.mel import _fbank
+
+    cfg = MelConfig()
+    gen = torch.Generator(cuda).manual_seed(t)
+    y = (torch.randn((b, t), generator=gen, device=cuda) * 0.3).requires_grad_()
+    g = torch.randn((b, 80, t // 120), generator=gen, device=cuda)
+    n = MEL.launches
+    out = mel_spectrogram(y, cfg)
+    torch.cuda.synchronize()
+    assert MEL.launches == n + 1 and type(out.grad_fn).__name__ == "LogMelFnBackward"
+    (dy,) = torch.autograd.grad(out, y, g)
+    assert MEL.launches == n + 1  # the backward launches no kernel
+    y2 = y.detach().requires_grad_()
+    ref = log_mel_ref(y2, _fbank(cfg, y.device), cfg.n_fft, cfg.hop_size, cfg.win_size,
+                      cfg.clip_val)
+    (dref,) = torch.autograd.grad(ref, y2, g)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert torch.equal(dy, dref)
+
+
+GAN_SMALL = {  # a small float32 GAN that the mel kernel takes (n_fft 256)
+    "mel": dict(sample_rate=16000, n_fft=256, win_size=128, hop_size=16, n_mel=32, fmax=8000),
+    "gen": dict(n_mel=32, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1, 3),), use_pallas_act=True),
+    "disc": dict(use=("mpd", "msd", "mrd"), mpd_periods=(2, 3), msd_scales=2,
+                 channel_mult=0.25, mrd_resolutions=((256, 32, 128),)),
+}
+
+
+def test_gan_step_card_matches_cpu(cuda):
+    """One D-then-G step of a small float32 GAN (MPD, MSD and MRD; kernels 2
+    and 3 on the card, their plain versions on the CPU) from the same
+    weights and batch: every loss within 1e-4 relative, and every updated
+    parameter's update within 1 % of the learning rate of the CPU's for all
+    but 1e-3 of the elements (Adam's first update is about the gradient's
+    sign: an element whose gradient is near 0 may flip)."""
+    import copy
+
+    from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
+    from amphion_tpu_torch.models.vocoders.gan_trainer import (
+        CombinedDiscriminator, GANTrainConfig, create_gan_states, make_gan_train_step)
+    from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    mel_cfg = MelConfig(**GAN_SMALL["mel"])
+    gen = torch.Generator().manual_seed(5)
+    g = init_like_flax(BigVGANGenerator(BigVGANConfig(**GAN_SMALL["gen"])), gen)
+    d = init_like_flax(CombinedDiscriminator(**GAN_SMALL["disc"]), gen)
+    with torch.no_grad():
+        for p in list(g.parameters()) + list(d.parameters()):
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    audio = torch.sin(torch.arange(2 * 32 * 16).reshape(2, -1) * torch.tensor([[0.05], [0.11]]))
+    audio = 0.4 * audio + 0.02 * torch.randn(audio.shape, generator=gen)
+    mel = mel_spectrogram_ref(audio, mel_cfg).transpose(1, 2).contiguous()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+        gs, ds = create_gan_states(gd, dd, GANTrainConfig())
+        n2, n3 = AA_SNAKE.launches, MEL.launches
+        _, _, m = make_gan_train_step(mel_cfg)(gs, ds, {"audio": audio.to(dev),
+                                                        "mel": mel.to(dev)})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (AA_SNAKE.launches - n2, MEL.launches - n3) == (2 * 9, 2)
+        res[dev] = ({k: v.item() for k, v in m.items()},
+                    [p.detach().cpu() for p in list(gd.parameters()) + list(dd.parameters())])
+    for k, v in res["cpu"][0].items():
+        assert abs(res["cuda"][0][k] - v) <= 1e-4 * abs(v), k
+    start = list(g.parameters()) + list(d.parameters())
+    lr = GANTrainConfig().lr
+    off = total = 0
+    for s, a, c in zip(start, res["cuda"][1], res["cpu"][1]):
+        diff = ((a - s.detach()) - (c - s.detach())).abs()
+        off += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+        assert diff.max().item() <= 2.1 * lr
+    assert off <= 1e-3 * total, (off, total)
