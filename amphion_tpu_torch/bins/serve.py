@@ -389,6 +389,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from amphion_tpu_torch.utils.device import strict_float32
+
+    strict_float32()
     backend = BUILDERS[args.backend](args)
     try:
         if args.prewarm and backend.prewarm is not None:

@@ -76,7 +76,7 @@ from amphion_tpu_torch.text.g2p import G2PModule
 from amphion_tpu_torch.text.symbol_table import SymbolTable
 from amphion_tpu_torch.utils.config import load_config
 from amphion_tpu_torch.utils.convert import init_like_flax
-from amphion_tpu_torch.utils.device import resolve_device
+from amphion_tpu_torch.utils.device import resolve_device, strict_float32
 from amphion_tpu_torch.utils.logging import get_logger
 from amphion_tpu_torch.utils.tokenizer import AudioTokenizer
 
@@ -293,6 +293,7 @@ def _run_single(args, cfg: dict, logger) -> None:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    strict_float32()
     cfg = load_config(args.config)
     logger = get_logger("tts_infer")
     if args.testing_set:

@@ -28,7 +28,7 @@ from amphion_tpu_torch.pipelines.vevo_pipeline import (
 )
 from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
 from amphion_tpu_torch.utils.convert import init_like_flax
-from amphion_tpu_torch.utils.device import resolve_device
+from amphion_tpu_torch.utils.device import resolve_device, strict_float32
 
 
 def _restore(module: torch.nn.Module, ckpt_dir, logger, tag: str) -> None:
@@ -51,6 +51,7 @@ def build_pipeline(args, cfg: dict, logger, device=None,
     if not getattr(args, "fm_exp", ""):
         raise SystemExit("--fm_exp is required")
     device = resolve_device(device)
+    strict_float32()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         mods = vevo_modules(cfg, voice=True)

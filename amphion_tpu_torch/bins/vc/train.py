@@ -45,7 +45,7 @@ from amphion_tpu_torch.runtime.optimizers import ClipAdamW, maybe_accumulate
 from amphion_tpu_torch.runtime.train_state import TrainState
 from amphion_tpu_torch.utils.config import load_config
 from amphion_tpu_torch.utils.convert import init_like_flax
-from amphion_tpu_torch.utils.device import resolve_device
+from amphion_tpu_torch.utils.device import resolve_device, strict_float32
 from amphion_tpu_torch.utils.logging import get_logger, model_summary
 
 
@@ -56,6 +56,7 @@ class _VevoTrainerBase:
         self.cfg = cfg
         self.logger = get_logger(name)
         self.device = resolve_device(getattr(args, "device", None))
+        strict_float32()
         t = cfg["train"]
         self.batch_size = t["batch_size"]
         self.frames = t.get("segment_frames", 256)
@@ -267,6 +268,7 @@ def main(argv: list[str] | None = None):
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; raises without a card)")
     args = parser.parse_args(argv)
+    strict_float32()
     if args.prosody_ckpt:
         raise NotImplementedError("the prosody tokenizer (Vevo1.5) is not ported")
     cfg = load_config(args.config)

@@ -8,11 +8,16 @@ at batch 1, in the modes ``from_audio``, ``from_feature`` and
         --checkpoint_path <dir> --output_dir <dir> --mode from_audio \\
         --audio_dir <dir> [--device cuda|cpu]
 
-The log-mel is kernel 3 on the card (`ops/mel.mel_spectrogram`); BigVGAN's
-activations run kernel 2 when the config sets ``use_pallas_act``. The
-checkpoint is the port's own (`runtime/vocoder_trainer.save_generator`
-writes one); an Orbax directory of the JAX package raises. The port adds
-``--device`` (default ``cuda``; raises without a card).
+Every generator of `runtime/vocoder_trainer.build_generator` that takes a
+mel alone runs: HiFi-GAN, BigVGAN, MelGAN, APNet and Vocos. NSF-HiFiGAN
+also needs an F0 contour, which this CLI does not feed (nor does JAX's),
+so it raises. The log-mel is kernel 3 on the card
+(`ops/mel.mel_spectrogram`); BigVGAN's activations run kernel 2 when the
+config sets ``use_pallas_act``. Float32 is strict on the card
+(`utils/device.strict_float32`). The checkpoint is the port's own
+(`runtime/vocoder_trainer.save_generator` writes one); an Orbax directory
+of the JAX package raises. The port adds ``--device`` (default ``cuda``;
+raises without a card).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from amphion_tpu_torch.data.metadata import load_metadata
 from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram
 from amphion_tpu_torch.runtime.vocoder_trainer import restore_generator
 from amphion_tpu_torch.utils.config import load_config
-from amphion_tpu_torch.utils.device import resolve_device
+from amphion_tpu_torch.utils.device import resolve_device, strict_float32
 from amphion_tpu_torch.utils.logging import get_logger
 
 
@@ -72,7 +77,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
                         help="torch device (default cuda; raises without a card)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    strict_float32()
     cfg = load_config(args.config)
+    if cfg["model"]["generator"] == "nsf_hifigan":
+        raise NotImplementedError(
+            "nsf_hifigan takes an F0 contour beside the mel, and copy synthesis feeds the "
+            "generator a mel alone (JAX's bins/vocoder/inference.py cannot run it either); "
+            "NSF-HiFiGAN runs through bins/vocoder/train.py")
     logger = get_logger("vocoder_infer")
     mel_cfg = MelConfig.from_preprocess_cfg(cfg["preprocess"])
     # the generator's weights from the {"g": ...} training checkpoint

@@ -6,13 +6,16 @@ registry keyed on ``cfg["model_type"]``.
         [--resume [--resume_type resume|finetune] [--resume_from_ckpt_path DIR]] \\
         [--device cpu]
 
-``GANVocoder`` trains the configured generator (BigVGAN is ported) against
-MPD, MSD and MRD (`runtime/vocoder_trainer.GANVocoderTrainer`); its
+``GANVocoder`` trains the configured generator (HiFi-GAN, BigVGAN, MelGAN,
+APNet, Vocos or NSF-HiFiGAN) against the configured discriminators (MPD,
+MSD, MRD, MS-STFT, MS-SB-CQT) with `runtime/vocoder_trainer.
+GANVocoderTrainer`; ``Vocos`` is the same trainer, as in JAX. Its
 checkpoints under ``log_dir/<exp_name>/checkpoint`` are read by
-`bins/vocoder/inference.py`. ``Vocos`` and ``DiffusionVocoder`` are not
-ported and raise. The port adds ``--device`` (default ``cuda``; raises
-without a card) and reads ``train.metrics_path`` (a JSONL file of
-per-step losses and wall times).
+`bins/vocoder/inference.py`. ``DiffusionVocoder`` (DiffWave) is not ported
+and raises. Float32 is strict on the card (`utils/device.strict_float32`).
+The port adds ``--device`` (default ``cuda``; raises without a card) and
+reads ``train.metrics_path`` (a JSONL file of per-step losses and wall
+times).
 """
 
 from __future__ import annotations
@@ -21,16 +24,16 @@ import argparse
 
 from amphion_tpu_torch.runtime.vocoder_trainer import GANVocoderTrainer
 from amphion_tpu_torch.utils.config import load_config
+from amphion_tpu_torch.utils.device import strict_float32
 
-TRAINERS = {"GANVocoder": GANVocoderTrainer}
-NOT_PORTED = ("Vocos", "DiffusionVocoder")
+TRAINERS = {"GANVocoder": GANVocoderTrainer, "Vocos": GANVocoderTrainer}
 
 
 def build_trainer(args, cfg: dict):
     model_type = cfg["model_type"]
-    if model_type in NOT_PORTED:
-        raise NotImplementedError(f"model_type {model_type!r} is not ported to "
-                                  "amphion_tpu_torch yet (ROADMAP.md A6)")
+    if model_type == "DiffusionVocoder":
+        raise NotImplementedError("model_type 'DiffusionVocoder' (DiffWave) is not ported to "
+                                  "amphion_tpu_torch yet (ROADMAP.md A5)")
     if model_type not in TRAINERS:
         raise ValueError(f"model_type {model_type!r} not in {sorted(TRAINERS)}")
     return TRAINERS[model_type](args, cfg)
@@ -49,6 +52,7 @@ def main(argv: list[str] | None = None):
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; raises without a card)")
     args = parser.parse_args(argv)
+    strict_float32()
     trainer = build_trainer(args, load_config(args.config))
     trainer.train_loop()
     return trainer

@@ -5,13 +5,17 @@ the combined discriminator, the optimizer and the D-then-G step.
 (gstate, dstate, metrics)``, which computes what JAX's jitted step does, in
 its order, eagerly:
 
-1. the generator's forward without gradient;
+1. the generator's forward on ``batch[k] for k in gen_args`` without
+   gradient;
 2. the LSGAN D loss on D(real) and D(fake), its gradient and the D update;
 3. a second generator forward with gradient, scored by the *updated*
    discriminator: adversarial + feature-matching + mel loss;
 4. the G gradient (``torch.autograd.grad`` over G's parameters only, so the
    backward computes no gradient of D's weights) and the G update.
 
+With ``use_rng`` (NSF-HiFiGAN's excitation noise) the step draws once from
+the G state's generator (the generator module's ``draw``) and feeds the
+same draws to both generator forwards, as JAX splits its key once a step.
 With BigVGAN's ``use_pallas_act`` each generator forward runs kernel 2 73
 times at the egs config (the second through `AASnakeBetaFn`); the mel
 loss runs kernel 3 twice, the fake's through `LogMelFn`. Only float32 is
@@ -30,6 +34,8 @@ from amphion_tpu_torch.models.vocoders.discriminators import (
     MultiPeriodDiscriminator,
     MultiResolutionDiscriminator,
     MultiScaleDiscriminator,
+    MultiScaleSubBandCQTDiscriminator,
+    MultiSTFTDiscriminator,
 )
 from amphion_tpu_torch.models.vocoders.losses import (
     discriminator_loss,
@@ -41,24 +47,20 @@ from amphion_tpu_torch.ops.mel import MelConfig
 from amphion_tpu_torch.runtime.optimizers import ClipAdamW
 from amphion_tpu_torch.runtime.train_state import TrainState
 
-NOT_PORTED = ("msstft", "mssbcqt")
-
 
 class CombinedDiscriminator(nn.Module):
-    """The configured discriminators (``use`` ⊆ mpd, msd, mrd) as one module:
-    logits and feature maps concatenated in JAX's order (MPD, MSD, MRD).
-    MRD takes no channel multiplier, as in JAX's."""
+    """The configured discriminators (``use`` ⊆ mpd, msd, mrd, msstft,
+    mssbcqt) as one module: logits and feature maps concatenated in JAX's
+    order (MPD, MSD, MRD, MS-STFT, MS-SB-CQT). MRD takes no channel
+    multiplier, as in JAX's; MS-SB-CQT takes ``sample_rate``."""
 
     def __init__(self, use: tuple[str, ...] = ("mpd", "msd"),
                  mpd_periods: tuple[int, ...] = (2, 3, 5, 7, 11), msd_scales: int = 3,
                  channel_mult: float = 1.0,
-                 mrd_resolutions: tuple[tuple[int, int, int], ...] = MRD_RESOLUTIONS):
+                 mrd_resolutions: tuple[tuple[int, int, int], ...] = MRD_RESOLUTIONS,
+                 sample_rate: int = 24000):
         super().__init__()
-        missing = [u for u in use if u in NOT_PORTED]
-        if missing:
-            raise NotImplementedError(f"discriminators {missing} are not ported to "
-                                      "amphion_tpu_torch yet (ROADMAP.md A5)")
-        unknown = [u for u in use if u not in ("mpd", "msd", "mrd")]
+        unknown = [u for u in use if u not in ("mpd", "msd", "mrd", "msstft", "mssbcqt")]
         if unknown:
             raise ValueError(f"unknown discriminators {unknown}")
         self.subs = []
@@ -71,6 +73,13 @@ class CombinedDiscriminator(nn.Module):
         if "mrd" in use:
             self.MultiResolutionDiscriminator_0 = MultiResolutionDiscriminator(mrd_resolutions)
             self.subs.append(self.MultiResolutionDiscriminator_0)
+        if "msstft" in use:
+            self.MultiSTFTDiscriminator_0 = MultiSTFTDiscriminator()
+            self.subs.append(self.MultiSTFTDiscriminator_0)
+        if "mssbcqt" in use:
+            self.MultiScaleSubBandCQTDiscriminator_0 = MultiScaleSubBandCQTDiscriminator(
+                sample_rate)
+            self.subs.append(self.MultiScaleSubBandCQTDiscriminator_0)
 
     def forward(self, x: torch.Tensor):
         logits, fmaps = [], []
@@ -114,29 +123,33 @@ def create_gan_states(generator: nn.Module, discriminator: nn.Module,
     return states[0], states[1]
 
 
-def make_gan_train_step(mel_cfg: MelConfig, train_cfg: GANTrainConfig = GANTrainConfig()):
+def make_gan_train_step(mel_cfg: MelConfig, train_cfg: GANTrainConfig = GANTrainConfig(),
+                        gen_args: tuple[str, ...] = ("mel",), use_rng: bool = False):
     """``train_step(gstate, dstate, batch) -> (gstate, dstate, metrics)``;
-    ``batch``: ``{"mel": (B, N, n_mel), "audio": (B, N·hop)}``; metrics
-    d_loss, g_loss, g_adv, g_fm, g_mel as 0-d tensors."""
+    ``batch``: ``{"audio": (B, N·hop)}`` and the generator's inputs
+    ``gen_args`` (``"mel"`` (B, N, n_mel); NSF-HiFiGAN adds ``"f0"`` (B,
+    N)); metrics d_loss, g_loss, g_adv, g_fm, g_mel as 0-d tensors."""
     if train_cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {train_cfg.compute_dtype!r}: only float32 GAN training is "
             "ported to amphion_tpu_torch (ROADMAP.md A5)")
 
     def train_step(gstate: TrainState, dstate: TrainState, batch: dict):
-        audio, mel = batch["audio"], batch["mel"]
+        audio = batch["audio"]
+        inputs = tuple(batch[k] for k in gen_args)
         gen, disc = gstate.model, dstate.model
+        draws = gen.draw(*inputs, generator=gstate.generator) if use_rng else {}
 
         # the discriminator's update, the generator frozen
         with torch.no_grad():
-            fake = gen(mel)
+            fake = gen(*inputs, **draws)
         logits_r, _ = disc(audio)
         logits_f, _ = disc(fake)
         d_loss, _, _ = discriminator_loss(logits_r, logits_f)
         dstate.apply_gradients(list(torch.autograd.grad(d_loss, dstate.optimizer.params)))
 
         # the generator's update, scored by the updated discriminator
-        fake_g = gen(mel)
+        fake_g = gen(*inputs, **draws)
         with torch.no_grad():
             _, fmaps_r = disc(audio)
         logits_f, fmaps_f = disc(fake_g)

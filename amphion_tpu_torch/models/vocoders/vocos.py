@@ -1,5 +1,6 @@
 """Vocos vocoder: ConvNeXt backbone + iSTFT head (port of
 `amphion_tpu/models/vocoders/vocos.py`). Mel in (B, N, n_mel) as in JAX.
+Vevo's vocoder and the GAN trainer's ``vocos`` generator.
 
 Numerics kept from Flax: LayerNorm eps 1e-6, ``"SAME"`` convolution padding,
 exact (erf) GELU, log-magnitude head clipped at 1e2.
@@ -38,6 +39,7 @@ class ConvNeXtBlock(nn.Module):
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
         self.Dense_0 = nn.Linear(dim, intermediate_dim)
         self.Dense_1 = nn.Linear(intermediate_dim, dim)
+        self.layer_scale = layer_scale
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale))
 
     def forward(self, x, mask=None):
@@ -61,7 +63,6 @@ class VocosGenerator(nn.Module):
         self.norm_post = nn.LayerNorm(cfg.dim, eps=1e-6)
         self.head = nn.Linear(cfg.dim, 2 * (cfg.n_fft // 2 + 1))
 
-    @torch.inference_mode()
     def forward(self, mel: torch.Tensor,
                 frame_lengths: torch.Tensor | None = None) -> torch.Tensor:
         """mel (B, N, n_mel) → waveform (B, N * hop). With ``frame_lengths``

@@ -21,8 +21,9 @@ codec's ``(k−1−⌈r/2⌉, k−1−⌊r/2⌋)`` with k = 2r is asymmetric for
 stride and an explicit ``(left, right)`` padding (the codec's strided
 encoder convolutions, the MSD's grouped ones).
 
-`WNConv2d` is the GAN discriminators' 2-D convolution (MPD, MRD), in
-torch's layout (B, C, H, W) in and out, with a symmetric padding per axis.
+`WNConv2d` is the GAN discriminators' 2-D convolution (MPD, MRD, MS-STFT,
+MS-SB-CQT), in torch's layout (B, C, H, W) in and out, with a symmetric
+padding per axis and a dilation.
 """
 
 from __future__ import annotations
@@ -77,16 +78,18 @@ class WNConv1d(nn.Module):
 
 class WNConv2d(nn.Module):
     """Flax ``WeightNorm(Conv(out, (kh, kw), strides=stride, padding=((ph,
-    ph), (pw, pw))))`` on (B, C, H, W) tensors.
+    ph), (pw, pw)), kernel_dilation=dilation))`` on (B, C, H, W) tensors.
 
     ``weight`` (out, in, kh, kw) is the unnormalised kernel, ``scale``
     (out,)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
-                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0)):
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
+                 dilation: tuple[int, int] = (1, 1)):
         super().__init__()
         self.stride = tuple(stride)
         self.padding = tuple(padding)
+        self.dilation = tuple(dilation)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale = nn.Parameter(torch.ones(out_channels))
@@ -94,7 +97,8 @@ class WNConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = _normalized(self.weight, self.scale, (1, 2, 3), 0)
-        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
 
 
 class WNConvTranspose1d(nn.Module):

@@ -62,6 +62,12 @@ def _idft_kernel(n_fft: int, win_size: int) -> np.ndarray:
     return (basis * w[:, None]).astype(np.float32)
 
 
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Frame a signal (..., T) into (..., n_frames, frame_length), n_frames
+    = 1 + (T − frame_length) // hop (a view)."""
+    return x.unfold(-1, frame_length, hop)
+
+
 def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflect-pad the last axis (numpy ``mode="reflect"``: no edge repeat)."""
     if pad >= y.shape[-1]:
@@ -83,7 +89,7 @@ def stft(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int,
     y = y.float()
     if center:
         y = _reflect_pad(y, n_fft // 2)
-    frames = y.unfold(-1, n_fft, hop_size)  # (B, N, n_fft)
+    frames = frame_signal(y, n_fft, hop_size)  # (B, N, n_fft)
     out = torch.einsum("bnt,ct->bcn", frames, _basis(_dft_kernel(n_fft, win_size), y))
     f = n_fft // 2 + 1
     return out[:, :f], out[:, f:]

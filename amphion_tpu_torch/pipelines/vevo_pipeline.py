@@ -134,6 +134,7 @@ class VevoPipeline:
             num_steps=flow_matching_steps, compute_dtype=self.compute_dtype,
             noise=noise, solver=solver)
 
+    @torch.inference_mode()
     def vocode(self, mel: torch.Tensor) -> torch.Tensor:
         return self.vocoder(mel.float())[0]
 

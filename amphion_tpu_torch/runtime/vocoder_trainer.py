@@ -1,13 +1,14 @@
 """GAN vocoder wiring (port of `amphion_tpu/runtime/vocoder_trainer.py`,
-without the NSF branch and the DiffWave trainer): the generator factory
-keyed on ``cfg["model"]["generator"]``, `GANVocoderTrainer`, a loader for
-a trained generator, and a writer of the checkpoint layout it reads.
+without the DiffWave trainer): the generator factory keyed on
+``cfg["model"]["generator"]`` (hifigan, bigvgan, melgan, apnet, vocos,
+nsf_hifigan), `GANVocoderTrainer`, a loader for a trained generator, and a
+writer of the checkpoint layout it reads.
 
 The port's vocoder checkpoint is a checkpoint directory (`runtime/checkpoint`
 naming) holding ``state.pt`` with ``{"g": {"model": state_dict, "step": n,
 ...}, "d": {...}, "epoch": n, ...}``: the trainer's two states, of which
 inference reads the generator's weights (`save_generator` writes that half
-alone). Only BigVGAN is ported; the other generators raise.
+alone).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from amphion_tpu_torch.data.dataset import Prefetcher, SegmentAudioDataset
 from amphion_tpu_torch.data.metadata import load_metadata
+from amphion_tpu_torch.models.vocoders.apnet import APNetConfig, APNetGenerator
 from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
 from amphion_tpu_torch.models.vocoders.gan_trainer import (
     CombinedDiscriminator,
@@ -26,20 +28,32 @@ from amphion_tpu_torch.models.vocoders.gan_trainer import (
     create_gan_states,
     make_gan_train_step,
 )
+from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig, HiFiGANGenerator
+from amphion_tpu_torch.models.vocoders.melgan import MelGANConfig, MelGANGenerator
+from amphion_tpu_torch.models.vocoders.nsf_hifigan import (
+    NSFHiFiGANConfig,
+    NSFHiFiGANGenerator,
+)
+from amphion_tpu_torch.models.vocoders.vocos import VocosConfig, VocosGenerator
+from amphion_tpu_torch.ops.f0 import F0Config, yin_f0
 from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram
 from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
 from amphion_tpu_torch.runtime.loop import LoopConfig, TrainLoop
 from amphion_tpu_torch.runtime.train_state import TrainStates
 from amphion_tpu_torch.utils.config import load_config, save_config
 from amphion_tpu_torch.utils.convert import init_like_flax
-from amphion_tpu_torch.utils.device import resolve_device
+from amphion_tpu_torch.utils.device import resolve_device, strict_float32
 from amphion_tpu_torch.utils.logging import get_logger, model_summary
 
 
 def build_generator(cfg: dict, n_mel: int):
-    """(generator module, hop size) for ``cfg["model"]["generator"]``."""
+    """(generator module, hop size) for ``cfg["model"]["generator"]``, with
+    JAX's defaults where the model block is missing."""
     name = cfg["model"]["generator"]
     m = cfg["model"].get(name)
+    if name == "hifigan":
+        gcfg = HiFiGANConfig.from_model_cfg(m, n_mel) if m else HiFiGANConfig(n_mel=n_mel)
+        return HiFiGANGenerator(gcfg), gcfg.hop_size
     if name == "bigvgan":
         kw = dict(
             upsample_rates=tuple(m["upsample_rates"]),
@@ -52,23 +66,86 @@ def build_generator(cfg: dict, n_mel: int):
             kw["use_pallas_act"] = bool(m["use_pallas_act"])
         gcfg = BigVGANConfig(n_mel=n_mel, **kw)
         return BigVGANGenerator(gcfg), gcfg.hop_size
-    raise NotImplementedError(
-        f"generator {name!r} is not ported to amphion_tpu_torch yet (ROADMAP.md, "
-        "queue A); bigvgan is")
+    if name == "melgan":
+        gcfg = MelGANConfig(n_mel=n_mel, **(
+            dict(upsample_rates=tuple(m["upsample_rates"])) if m else {}))
+        return MelGANGenerator(gcfg), gcfg.hop_size
+    if name == "apnet":
+        gcfg = APNetConfig(n_mel=n_mel, **(
+            dict(n_fft=m["n_fft"], hop_size=m["hop_size"],
+                 win_size=m.get("win_size", m["n_fft"])) if m else {}))
+        return APNetGenerator(gcfg), gcfg.hop_size
+    if name == "vocos":
+        gcfg = VocosConfig(n_mel=n_mel, **(
+            dict(n_fft=m["n_fft"], hop_size=m["hop_size"]) if m else {}))
+        return VocosGenerator(gcfg), gcfg.hop_size
+    if name == "nsf_hifigan":
+        base = (HiFiGANConfig.from_model_cfg(m["base"], n_mel)
+                if m and m.get("base") else HiFiGANConfig(n_mel=n_mel))
+        gcfg = NSFHiFiGANConfig(base=base, sample_rate=cfg["preprocess"]["sample_rate"],
+                                num_harmonics=m.get("num_harmonics", 7) if m else 7)
+        return NSFHiFiGANGenerator(gcfg), base.hop_size
+    raise ValueError(f"unknown generator {name!r}")
+
+
+def build_discriminator(cfg: dict) -> CombinedDiscriminator:
+    """`CombinedDiscriminator` of ``cfg["model"]["discriminators"]`` (MPD +
+    MSD by default), with JAX's defaults."""
+    m = cfg["model"]
+    return CombinedDiscriminator(
+        use=tuple(m.get("discriminators", ["mpd", "msd"])),
+        mpd_periods=tuple(m.get("mpd_periods", (2, 3, 5, 7, 11))),
+        msd_scales=m.get("msd_scales", 3),
+        channel_mult=m.get("discriminator_channel_mult_factor", 1.0),
+        sample_rate=cfg["preprocess"]["sample_rate"])
+
+
+def step_flops(cfg: dict) -> dict:
+    """Floating-point operations of one `GANVocoderTrainer` step at
+    ``cfg``'s batch and segment, from shapes alone: the generator and the
+    discriminators are built on the meta device (no memory, no arithmetic)
+    and run forward once under `FlopCounterMode`, which counts convolutions
+    and matrix products. A step of `make_gan_train_step` is 4 generator
+    forward units (two forwards, a backward of two) and 9 discriminator ones
+    (the D step's two forwards and their backwards, two units each; the G
+    step's two forwards and one input backward). Not for BigVGAN, whose
+    kernel wrapper takes no meta tensor."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    p, t = cfg["preprocess"], cfg["train"]
+    b, n = t["batch_size"], t.get("segment_frames", 64)
+    with torch.device("meta"):
+        gen, hop = build_generator(cfg, p["n_mel"])
+        disc = build_discriminator(cfg)
+        mel = torch.empty(b, n, p["n_mel"])
+        inputs = (mel, torch.empty(b, n)) if cfg["model"]["generator"] == "nsf_hifigan" else (mel,)
+        counts = []
+        for fn, args in ((gen, inputs), (disc, (torch.empty(b, n * hop),))):
+            with FlopCounterMode(display=False) as counter, torch.no_grad():
+                fn(*args)
+            counts.append(counter.get_total_flops())
+    g, d = counts
+    return {"generator_forward": g, "discriminator_forward": d, "step": 4 * g + 9 * d,
+            "params_g": sum(x.numel() for x in gen.parameters()),
+            "params_d": sum(x.numel() for x in disc.parameters())}
 
 
 class GANVocoderTrainer:
-    """`bins/vocoder/train.py`'s GANVocoder trainer: the generator of
-    ``cfg["model"]["generator"]`` against `CombinedDiscriminator`
-    (``model.discriminators``, MPD + MSD by default), one D-then-G step a
-    batch (`make_gan_train_step`), each half with its own optimizer.
+    """`bins/vocoder/train.py`'s GANVocoder (and Vocos) trainer: the
+    generator of ``cfg["model"]["generator"]`` against
+    `CombinedDiscriminator` (``model.discriminators``, MPD + MSD by
+    default), one D-then-G step a batch (`make_gan_train_step`), each half
+    with its own optimizer. Float32 is strict on the card
+    (`utils/device.strict_float32`).
 
     Batches are random segments of ``train.segment_frames`` frames from the
     ``train.json`` of each dataset under ``preprocess.processed_dir``, with
     their log-mel made on the device (kernel 3 on the card) as the
-    generator's input (B, N, n_mel). A clip longer than a segment is
-    cropped at an offset drawn from (``train.seed``, epoch, batch), so a
-    resume repeats the uninterrupted run's batches. Both models are drawn
+    generator's input (B, N, n_mel); NSF-HiFiGAN also takes their YIN F0
+    (`ops/f0.yin_f0`, on the device, cut to the mel's frames) and a draw of
+    its excitation noise a step from the G state's generator. A clip longer
+    than a segment is cropped at an offset drawn from (``train.seed``,
+    epoch, batch), so a resume repeats the uninterrupted run's batches. Both models are drawn
     from ``train.seed`` with the Flax initializers (`init_like_flax`). The
     resolved config is written as ``exp_config.json`` beside the
     checkpoints, where `load_vocoder` finds it."""
@@ -78,21 +155,22 @@ class GANVocoderTrainer:
         self.logger = get_logger("vocoder")
         self.logger.setLevel(str(getattr(args, "log_level", "info")).upper())
         self.device = resolve_device(getattr(args, "device", None))
+        strict_float32()
         p, t, m = cfg["preprocess"], cfg["train"], cfg["model"]
         self.train_cfg = GANTrainConfig(
             lr=t["adamw"]["lr"], adam_b1=t["adamw"]["adam_b1"], adam_b2=t["adamw"]["adam_b2"],
             lr_decay=t["exponential_lr"]["lr_decay"],
             compute_dtype=t.get("compute_dtype", "float32"))
         self.mel_cfg = MelConfig.from_preprocess_cfg(p)
-        step = make_gan_train_step(self.mel_cfg, self.train_cfg)
+        self.is_nsf = m["generator"] == "nsf_hifigan"
+        self.f0_cfg = F0Config.from_preprocess_cfg(p) if self.is_nsf else None
+        step = make_gan_train_step(self.mel_cfg, self.train_cfg,
+                                   gen_args=("mel", "f0") if self.is_nsf else ("mel",),
+                                   use_rng=self.is_nsf)
         generator, hop = build_generator(cfg, p["n_mel"])
         if hop != p["hop_size"]:
             raise ValueError(f"generator hop {hop} != preprocess hop {p['hop_size']}")
-        discriminator = CombinedDiscriminator(
-            use=tuple(m.get("discriminators", ["mpd", "msd"])),
-            mpd_periods=tuple(m.get("mpd_periods", (2, 3, 5, 7, 11))),
-            msd_scales=m.get("msd_scales", 3),
-            channel_mult=m.get("discriminator_channel_mult_factor", 1.0))
+        discriminator = build_discriminator(cfg)
 
         utts = []
         for ds in cfg["dataset"]:
@@ -131,7 +209,11 @@ class GANVocoderTrainer:
     def _make_batch(self, indices: list[int], rng: np.random.Generator) -> dict:
         audio = np.stack([self.dataset.segment(i, rng)["audio"] for i in indices])
         au = torch.from_numpy(audio).to(self.device)
-        return {"mel": mel_spectrogram(au, self.mel_cfg).transpose(1, 2), "audio": au}
+        batch = {"mel": mel_spectrogram(au, self.mel_cfg).transpose(1, 2), "audio": au}
+        if self.is_nsf:
+            f0, _ = yin_f0(au, self.f0_cfg)
+            batch["f0"] = f0[:, : batch["mel"].shape[1]]
+        return batch
 
     def _data(self, skip: int = 0):
         """This epoch's full batches, in the epoch's own permutation, from the

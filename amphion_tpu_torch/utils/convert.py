@@ -6,7 +6,10 @@ module's parameters finds each one's leaf in the tree by its dotted path
 ["encoder"]["layer_3"]["attn"]["q_proj"]``) and converts the layout:
 
 - Linear ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
-- Conv1d ``kernel`` (k, in/groups, out) → ``weight`` (out, in/groups, k);
+- Conv1d ``kernel`` (k, in/groups, out) → ``weight`` (out, in/groups, k),
+  Conv2d ``kernel`` (kh, kw, in, out) → ``weight`` (out, in, kh, kw): the
+  plain convolutions (strided or not) of NSF-HiFiGAN's source, Vocos and
+  the MS-STFT and MS-SB-CQT discriminators;
 - weight-normalised convolutions (`WNConv1d`, `WNConv2d`,
   `WNConvTranspose1d`): the kernel as a Conv's (a 2-D one's (kh, kw,
   in/groups, out) → (out, in/groups, kh, kw)), a ConvTranspose's (k, in,
@@ -42,6 +45,7 @@ import torch
 from torch import nn
 
 from amphion_tpu_torch.models.tts.maskgct.maskgct import MaskGCTS2A, MaskGCTT2S
+from amphion_tpu_torch.models.vocoders.vocos import ConvNeXtBlock
 from amphion_tpu_torch.modules.activations import Snake, SnakeBeta
 from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
 from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
@@ -103,6 +107,10 @@ def _flax_leaf(module: nn.Module, tree: dict, path: list[str], pname: str):
         if pname == "weight":
             return _leaf(tree, path, "kernel").transpose(2, 1, 0)
         return _leaf(tree, path, "bias")
+    if isinstance(module, nn.Conv2d):
+        if pname == "weight":
+            return _leaf(tree, path, "kernel").transpose(3, 2, 0, 1)
+        return _leaf(tree, path, "bias")
     if isinstance(module, nn.LayerNorm):
         return _leaf(tree, path, "scale" if pname == "weight" else "bias")
     if isinstance(module, nn.Embedding):
@@ -143,8 +151,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     - Dense (``nn.Linear``): kernel lecun_normal (fan_in = in features),
       bias 0; the adaptive RMSNorm's ``to_weight`` kernel 0 and bias 1;
-    - Conv (``nn.Conv1d``): kernel lecun_normal (fan_in = in/groups · k),
-      bias 0;
+    - Conv (``nn.Conv1d``, ``nn.Conv2d``): kernel lecun_normal (fan_in =
+      in/groups · k, or in · kh · kw), bias 0;
     - weight-normalised Conv and ConvTranspose: kernel lecun_normal
       (fan_in = in/groups · k, or in/groups · kh · kw, for a Conv and in · k
       for a ConvTranspose, as Flax counts it), bias 0, scale 1;
@@ -153,7 +161,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
     - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
     - VQ codebooks: ``FactorizedVectorQuantize`` normal(1),
       ``VectorQuantize`` uniform with variance 1/codebook_size;
-    - MaskGCT's ``mask_emb``: normal with std 0.02.
+    - MaskGCT's ``mask_emb``: normal with std 0.02;
+    - a Vocos ConvNeXt block's ``gamma``: its layer scale.
 
     Buffers (quantized projections) are left alone; a parameter of any
     other kind raises."""
@@ -167,7 +176,7 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.zeros_(sub.to_weight.weight)
             nn.init.ones_(sub.to_weight.bias)
             done.update(id(p) for p in sub.to_weight.parameters())
-        elif isinstance(sub, (nn.Linear, nn.Conv1d)):
+        elif isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = sub.weight[0].numel()  # in (· k) per output
             _lecun_normal_(sub.weight, fan_in, g)
             if sub.bias is not None:
@@ -196,6 +205,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             sub.codebook.uniform_(-limit, limit, generator=g)
         elif isinstance(sub, (MaskGCTT2S, MaskGCTS2A)):
             sub.mask_emb.normal_(0.0, 0.02, generator=g)
+        elif isinstance(sub, ConvNeXtBlock):
+            nn.init.constant_(sub.gamma, sub.layer_scale)
         else:
             if own:
                 raise TypeError(f"init_like_flax: no Flax initializer known for "

@@ -48,6 +48,17 @@ at the full width of ``config/vevo.json`` with random weights from
   step's own input, a profiled step pair and both backwards timed; two
   steps of ``egs/vocoder/gan/bigvgan_large`` (MPD + MRD); and a small GAN
   step on the card against the CPU;
+- the other GAN vocoders: each remaining ``egs/vocoder/gan`` recipe
+  (hifigan, melgan, apnet with the base preprocess's STFT as its missing
+  ``model.apnet`` block, vocos, nsfhifigan, tfr_enhanced_hifigan with
+  MS-SB-CQT) at its width and batch for 3 float32 steps through
+  `bins/vocoder/train.main` (kernel 3 three times a step, no other kernel;
+  kernel 3 on a step's own real and fake audio against `log_mel_ref` and
+  float64), then two files of copy synthesis from the last checkpoint
+  through `bins/vocoder/inference.main` (kernel 3 once a file; NSF-HiFiGAN
+  raises: the CLI feeds no F0); one HiFi-GAN step against MPD + MS-STFT;
+  `yin_f0` on a 220 Hz tone and card against CPU; small HiFi-GAN + MPD +
+  MS-SB-CQT and NSF-HiFiGAN steps on the card against the CPU;
 - MaskGCT zero-shot TTS as `bins/serve.py` serves it by default, at the
   width of ``egs/tts/MaskGCT/exp_config.json`` (T2S and S2A 1024 x 16
   layers in bf16, the Amphion codec, the mel semantic front end): port
@@ -2227,7 +2238,8 @@ def bwd_timing_phase(flash_mod, train: dict, errs: dict) -> tuple[dict, dict]:
     row = _row("flash_attn_bwd", "flash_attn_bwd.cu", 1044, launches, errs["flash_bwd"],
                fm["ms"], fm["plain_ms"], fm["bound_ms"], fm["bound_by"], fm["library_ms"],
                shape="fm (8, 256, 16, 64) f32; ar_* (8, 516, 20, 64) f32 causal",
-               launches_per_step={"fm": FM_LAYERS, "ar": AR_LAYERS},
+               launches_per_step={s: train[s]["launches"]["flash_attn_bwd"] / TRAIN_STEPS
+                                  for s in ("fm", "ar")},
                bound_3xtf32_ms=fm["bound_3xtf32_ms"], library_backend=fm["library_backend"],
                timing=f"graph replays; SDPA backward: {fm['library_timing']}",
                ar_ms=ar["ms"], ar_plain_ms=ar["plain_ms"], ar_bound_ms=ar["bound_ms"],
@@ -2786,7 +2798,6 @@ def snake_timing_phase(voc: dict, errs: dict, kernels: dict) -> list:
 
 GAN_STEPS, GAN_SAVE = 8, 4
 GAN_CLIPS = 32  # 0.5-1 s each: longer than a 64-frame segment, so crops are drawn
-GAN_AA_PER_STEP = 2 * AA_PER_FORWARD  # 146: the D step's generator forward and the G step's
 GAN_MEL_PER_STEP = 3  # the batch's conditioning mel, mel_loss's real and (LogMelFn) fake
 GAN_LARGE_CONFIG = "egs/vocoder/gan/bigvgan_large/exp_config.json"
 GAN_LARGE_AA_PER_FORWARD = 6 * 18 + 1  # six stages of 18 activations, plus the last
@@ -2825,12 +2836,14 @@ def gan_corpus(root, seed: int, n: int = GAN_CLIPS) -> None:
     save_metadata(root / "data" / "smoke" / "train.json", utts)
 
 
-def gan_config(root, name: str, base: str = VOC_CONFIG, **train) -> str:
+def gan_config(root, name: str, base: str = VOC_CONFIG, model: dict | None = None,
+               **train) -> str:
     """``base`` (an egs vocoder recipe, at its width and batch) over the
-    smoke corpus, with a log dir and a metrics file under ``root`` and the
-    ``train`` overrides."""
+    smoke corpus, with a log dir and a metrics file under ``root``, the
+    ``model`` overrides and the ``train`` ones."""
     cfg = {"base_config": os.path.abspath(base), "dataset": ["smoke"],
            "log_dir": str(root / "ckpts"), "preprocess": {"processed_dir": str(root / "data")},
+           "model": model or {},
            "train": {"log_interval": 1, "metrics_path": str(root / f"{name}.jsonl"), **train}}
     path = root / f"{name}.json"
     path.write_text(json.dumps(cfg))
@@ -3265,38 +3278,29 @@ def gan_large_phase(seed: int, kernels: dict) -> dict:
     return {"step_s": [r["step_s"] for r in rows], "peak_gib": peak}
 
 
-def gan_reference_phase(seed: int) -> None:
-    """One D-then-G step of a small float32 GAN (BigVGAN 32 channels with
-    the fused activation, MPD + MSD + MRD at a quarter width; n_fft 256)
-    on the card and on the CPU from the same weights and batch: every loss
-    within 1e-4 relative, and each updated parameter's update within 1 % of
-    the learning rate of the CPU's for all but 1e-3 of the elements, none
-    further than 2.1 learning rates (Adam's first update is about the
-    gradient's sign: an element whose gradient is near 0 may flip)."""
+def gan_step_card_vs_cpu(label: str, g, d, mel_cfg, batch: dict, gen_args=("mel",),
+                         draws: dict | None = None) -> None:
+    """One D-then-G step of the float32 pair (``g``, ``d``) on the card and on
+    the CPU from the same weights and batch (and, for a generator that
+    draws noise, the same ``draws``, given to both): every loss within 1e-4
+    relative, and each updated parameter's update within 1 % of the learning
+    rate of the CPU's for all but 1e-3 of the elements, none further than
+    2.1 learning rates (Adam's first update is about the gradient's sign: an
+    element whose gradient is near 0 may flip)."""
     import copy
 
-    from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
     from amphion_tpu_torch.models.vocoders.gan_trainer import (
-        CombinedDiscriminator, GANTrainConfig, create_gan_states, make_gan_train_step)
-    from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram_ref
-    from amphion_tpu_torch.utils.convert import init_like_flax
+        GANTrainConfig, create_gan_states, make_gan_train_step)
 
-    mel_cfg = MelConfig(**GAN_SMALL["mel"])
-    gen = torch.Generator().manual_seed(seed + 47)
-    g = init_like_flax(BigVGANGenerator(BigVGANConfig(**GAN_SMALL["gen"])), gen)
-    d = init_like_flax(CombinedDiscriminator(**GAN_SMALL["disc"]), gen)
-    with torch.no_grad():
-        for p in list(g.parameters()) + list(d.parameters()):
-            p.add_(0.05 * torch.randn(p.shape, generator=gen))
-    rng = np.random.default_rng(seed + 47)
-    audio = torch.from_numpy(np.stack([synth_audio(rng, 0.064) for _ in range(4)])[:, :1024])
-    mel = mel_spectrogram_ref(audio, mel_cfg).transpose(1, 2).contiguous()
     res = {}
     for dev in ("cpu", DEV):
         gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+        if draws is not None:
+            on_dev = {k: v.to(dev) for k, v in draws.items()}
+            gd.draw = lambda *args, generator: on_dev
         gs, ds = create_gan_states(gd, dd, GANTrainConfig())
-        _, _, m = make_gan_train_step(mel_cfg)(gs, ds, {"audio": audio.to(dev),
-                                                        "mel": mel.to(dev)})
+        step = make_gan_train_step(mel_cfg, gen_args=gen_args, use_rng=draws is not None)
+        _, _, m = step(gs, ds, {k: v.to(dev) for k, v in batch.items()})
         res[dev] = ({k: v.item() for k, v in m.items()},
                     [p.detach().cpu() for p in list(gd.parameters()) + list(dd.parameters())])
     rel = max(abs(res[DEV][0][k] - v) / abs(v) for k, v in res["cpu"][0].items())
@@ -3308,11 +3312,42 @@ def gan_reference_phase(seed: int) -> None:
         off += int((diff > 1e-2 * lr).sum())
         total += diff.numel()
         worst = max(worst, diff.max().item())
-    check("reference: small f32 GAN step, card vs CPU",
+    check(f"reference: {label}, card vs CPU",
           rel <= 1e-4 and off <= 1e-3 * total and worst <= 2.1 * lr,
           f"losses {res[DEV][0]} vs {res['cpu'][0]} (max rel {rel:.2g}, tol 1e-4); "
           f"updates off by more than 1 % of lr: {off} of {total} (tol 1e-3), worst "
           f"{worst / lr:.3g} lr (tol 2.1)")
+
+
+def perturbed_flax_init(module, gen: torch.Generator):
+    """``module`` drawn by `init_like_flax`, then every parameter moved by
+    0.05 standard normal noise (weight-norm scales off 1, biases off 0)."""
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    init_like_flax(module, gen)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def gan_reference_phase(seed: int) -> None:
+    """One D-then-G step of a small float32 GAN (BigVGAN 32 channels with
+    the fused activation, MPD + MSD + MRD at a quarter width; n_fft 256)
+    on the card and on the CPU from the same weights and batch
+    (`gan_step_card_vs_cpu`)."""
+    from amphion_tpu_torch.models.vocoders.bigvgan import BigVGANConfig, BigVGANGenerator
+    from amphion_tpu_torch.models.vocoders.gan_trainer import CombinedDiscriminator
+    from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram_ref
+
+    mel_cfg = MelConfig(**GAN_SMALL["mel"])
+    gen = torch.Generator().manual_seed(seed + 47)
+    g = perturbed_flax_init(BigVGANGenerator(BigVGANConfig(**GAN_SMALL["gen"])), gen)
+    d = perturbed_flax_init(CombinedDiscriminator(**GAN_SMALL["disc"]), gen)
+    rng = np.random.default_rng(seed + 47)
+    audio = torch.from_numpy(np.stack([synth_audio(rng, 0.064) for _ in range(4)])[:, :1024])
+    mel = mel_spectrogram_ref(audio, mel_cfg).transpose(1, 2).contiguous()
+    gan_step_card_vs_cpu("small f32 GAN step", g, d, mel_cfg, {"audio": audio, "mel": mel})
 
 
 def gan_phase(seed: int, kernels: dict, rows: list) -> None:
@@ -3324,7 +3359,7 @@ def gan_phase(seed: int, kernels: dict, rows: list) -> None:
     t = gan["timing"]
     row = next(r for r in rows if r["name"] == "mel_spectrogram")
     row["gan_training"] = {
-        "launches": gan["launches"]["mel"], "launches_per_step": GAN_MEL_PER_STEP,
+        "launches": gan["launches"]["mel"], "launches_per_step": gan["launches"]["mel"] / GAN_STEPS,
         "shape": t["mel"]["shape"], "ms": t["mel"]["forward_ms"],
         "plain_ms": t["mel"]["forward_plain_ms"], "bound_ms": t["mel"]["forward_bound_ms"],
         "library_ms": t["mel"]["forward_library_ms"], "max_abs_err": gan["mel_fwd_err"],
@@ -3333,9 +3368,277 @@ def gan_phase(seed: int, kernels: dict, rows: list) -> None:
                      "is": "LogMelFn.backward: autograd of log_mel_ref, no kernel"}}
     row = next(r for r in rows if r["name"] == "aa_snake")
     row["gan_training"] = {
-        "launches": gan["launches"]["aa_snake"], "launches_per_step": GAN_AA_PER_STEP,
+        "launches": gan["launches"]["aa_snake"],
+        "launches_per_step": gan["launches"]["aa_snake"] / GAN_STEPS,
         "backward": {**t["aa_chain_bwd"],
                      "is": "AASnakeBetaFn.backward: autograd of the unfused chain, no kernel"}}
+
+
+# -- the GAN vocoder zoo: every egs/vocoder/gan recipe through both vocoder CLIs ---
+
+ZOO_RECIPES = ("hifigan", "melgan", "apnet", "vocos", "nsfhifigan", "tfr_enhanced_hifigan")
+ZOO_STEPS = 3
+ZOO_CLIPS = 48  # three batches of 16: the three steps consume one whole epoch
+ZOO_FILES = 2  # copy-synthesis files per recipe
+# the apnet recipe has no model.apnet block, so APNetConfig keeps hop 256 against the
+# preprocess hop of 120 and JAX's trainer fails its hop check: the base preprocess's STFT
+ZOO_APNET = {"n_fft": 1024, "hop_size": 120, "win_size": 480}
+# the small float32 pairs held card vs CPU (24 kHz: MS-SB-CQT's nine octaves need it)
+ZOO_SMALL_MEL = dict(sample_rate=24000, n_fft=256, win_size=128, hop_size=16, n_mel=32,
+                     fmax=8000)
+ZOO_SMALL_HIFI = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                      upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                      resblock_dilation_sizes=((1, 3),), n_mel=32)
+
+
+def zoo_mel_check(trainer, seed: int) -> dict:
+    """Kernel 3 on one step's own inputs: a batch's real audio and the
+    generator's fake audio as the mel loss's `LogMelFn` took it (recorded by
+    `GANBackwards`), each against `log_mel_ref` and float64: the kernel
+    within 1e-3 of float64 or no further than `log_mel_ref` (the GAN
+    phase's tolerance)."""
+    from amphion_tpu_torch.ops.kernels.mel import log_mel, log_mel_f64, log_mel_ref
+    from amphion_tpu_torch.ops.mel import _fbank
+
+    bs, n = trainer.batch_size, len(trainer.dataset)
+    batch = trainer._make_batch(list(range(min(bs, n))), np.random.default_rng(seed))
+    with GANBackwards(record=True) as rec:
+        trainer.loop.train_step(trainer.loop.states, batch)
+    torch.cuda.synchronize()
+    fake, _, _, args = rec.mel[0]
+    fb = _fbank(trainer.mel_cfg, fake.device)
+    out = {}
+    with torch.no_grad():
+        for name, y in (("real", batch["audio"]), ("fake", fake)):
+            k, r, f64 = log_mel(y, fb, *args), log_mel_ref(y, fb, *args), log_mel_f64(y, fb, *args)
+            out[name] = {"vs_log_mel_ref": (k - r).abs().max().item(),
+                         "kernel_vs_float64": (k.double() - f64).abs().max().item(),
+                         "log_mel_ref_vs_float64": (r.double() - f64).abs().max().item()}
+    ok = all(v["kernel_vs_float64"] <= max(1e-3, v["log_mel_ref_vs_float64"])
+             for v in out.values())
+    return {"ok": ok, **out}
+
+
+def zoo_base(recipe: str) -> tuple[str, dict | None]:
+    """The egs recipe a zoo run trains and its model overrides: apnet's STFT
+    (`ZOO_APNET`), and the MS-STFT run's HiFi-GAN against MPD + MS-STFT."""
+    base = f"egs/vocoder/gan/{'hifigan' if recipe == 'msstft' else recipe}/exp_config.json"
+    return base, {"apnet": {"apnet": ZOO_APNET},
+                  "msstft": {"discriminators": ["mpd", "msstft"]}}.get(recipe)
+
+
+def zoo_recipe(root, recipe: str, kernels: dict, seed: int) -> dict:
+    """One egs/vocoder/gan recipe at its width and batch: ZOO_STEPS float32
+    steps through `bins/vocoder/train.main` (kernel 3 three times a step, no
+    other kernel), kernel 3 on a step's own real and fake audio, then copy
+    synthesis of ZOO_FILES files from the last checkpoint through
+    `bins/vocoder/inference.main` (kernel 3 once a file; NSF-HiFiGAN raises:
+    the CLI feeds no F0)."""
+    import shutil
+    from pathlib import Path
+
+    from amphion_tpu_torch.bins.vocoder import inference
+    from amphion_tpu_torch.bins.vocoder.train import main as train_main
+    from amphion_tpu_torch.data.audio_io import load_wav
+    from amphion_tpu_torch.runtime.vocoder_trainer import step_flops
+
+    base, model = zoo_base(recipe)
+    steps = 1 if recipe == "msstft" else ZOO_STEPS
+    cfg = gan_config(root, recipe, base=base, model=model, max_steps=steps)
+    if recipe == "msstft":  # a one-batch epoch, so the data path makes no batch beyond it
+        c = json.loads(Path(cfg).read_text())
+        Path(cfg).write_text(json.dumps({**c, "dataset": ["one_batch"]}))
+    if recipe == "apnet":
+        log(f"  zoo apnet: the recipe has no model.apnet block (hop 256 against the "
+            f"preprocess's 120, which fails JAX's hop check too); trained with "
+            f"model.apnet = {ZOO_APNET}")
+    for k in kernels.values():
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config", cfg, "--exp_name", recipe])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_ok, launches_detail = gan_launches(kernels, steps, aa_per_forward=0)
+    mel_launches = kernels["mel"].launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = metrics(root, recipe)
+    states = trainer.loop.states
+    n_g, n_d = (sum(p.numel() for p in states[s].model.parameters()) for s in ("g", "d"))
+    d_names = [type(m).__name__ for m in states["d"].model.subs]
+    check(f"zoo {recipe} train", len(rows) == steps and all(
+        math.isfinite(r[k]) for r in rows for k in GAN_KEYS) and launches_ok,
+        f"{type(states['g'].model).__name__} {n_g / 1e6:.2f} M + {d_names} {n_d / 1e6:.2f} M "
+        f"params, batch {trainer.batch_size} x {trainer.dataset.segment_samples}: losses "
+        + json.dumps([{k: r[k] for k in GAN_KEYS} for r in rows])
+        + f"; launches {launches_detail}")
+    step_s = [r["step_s"] for r in rows]
+    samples = trainer.batch_size * trainer.dataset.segment_samples
+    med = statistics.median(step_s)
+    flop = step_flops(trainer.cfg)["step"] / 1e12  # of the config just trained
+    out = {"generator": type(states["g"].model).__name__, "discriminators": d_names,
+           "params_g_m": n_g / 1e6, "params_d_m": n_d / 1e6, "step_s": step_s,
+           "median_step_s": med, "audio_s_per_s": samples / med / SR,
+           "max_memory_allocated_gib": peak, "wall_s": wall, "steps": len(rows),
+           "mel_launches": mel_launches,
+           "conv_tflop_per_step": flop, "conv_tflop_per_s_at_median": flop / med}
+    mel = zoo_mel_check(trainer, seed)
+    check(f"zoo {recipe} kernel 3 on the step's audio", mel["ok"], json.dumps(mel))
+    out["mel_check"] = mel
+    del trainer, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if recipe == "msstft":
+        return out
+    wavs = root / f"in_{recipe}"
+    wavs.mkdir()
+    for i in range(ZOO_FILES):
+        shutil.copy(root / "wav" / f"{i:02d}.wav", wavs / f"{i:02d}.wav")
+    argv = ["--config", str(root / "ckpts" / recipe / "exp_config.json"), "--checkpoint_path",
+            str(root / "ckpts" / recipe / "checkpoint"), "--output_dir",
+            str(root / f"out_{recipe}"), "--mode", "from_audio", "--audio_dir", str(wavs)]
+    if recipe == "nsfhifigan":
+        try:
+            inference.main(argv)
+            raised = ""
+        except NotImplementedError as exc:
+            raised = str(exc)
+        check("zoo nsfhifigan copy synthesis raises", "F0" in raised, repr(raised[:120]))
+        return out
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    recs = inference.main(argv)
+    torch.cuda.synchronize()
+    synth_wall = time.perf_counter() - t0
+    got = {name: k.launches for name, k in kernels.items() if k.launches}
+    wav_ok = []
+    for r in recs:
+        wav, sr = load_wav(r["path"], sr=SR)
+        src, _ = load_wav(wavs / Path(r["path"]).name, sr=SR)
+        wav_ok.append(sr == SR and len(wav) == len(src) // HOP * HOP
+                      and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0)
+    audio_s = sum(r["samples"] for r in recs) / SR
+    file_s = sum(r["seconds"] for r in recs)
+    check(f"zoo {recipe} copy synthesis", len(recs) == ZOO_FILES and all(wav_ok)
+          and got == {"mel": ZOO_FILES},
+          f"{len(recs)} wavs well-formed {wav_ok}; launches {got} (predicted mel "
+          f"{ZOO_FILES}, one a file); {audio_s:.2f} audio s in {file_s:.3f} s of files "
+          f"({synth_wall:.2f} s with the CLI's restore)")
+    # audio s per s of the files (each: read, mel, generator, write), the
+    # checkpoint's restore left out, as the vocoder phase counts it
+    out.update(synth_audio_s_per_s=audio_s / file_s, synth_cli_wall_s=synth_wall,
+               synth_file_s=[r["seconds"] for r in recs], synth_files=len(recs),
+               synth_mel_launches=got["mel"])
+    return out
+
+
+def zoo_yin_check(seed: int) -> dict:
+    """`ops/f0.yin_f0` at the base preprocess's front end (24 kHz, hop 120,
+    1024-sample frames) on the card: a 2 s 220 Hz tone within 1 % at every
+    frame away from the edges, and card against CPU on a batch of synthetic
+    speech with the tone (f0 within 1e-3 relative or both unvoiced) on at
+    least 99 % of the frames: a frame near the voicing threshold may flip."""
+    from amphion_tpu_torch.ops.f0 import F0Config, yin_f0
+
+    cfg = F0Config()
+    rng = np.random.default_rng(seed + 53)
+    t = np.arange(2 * SR) / SR
+    tone = (0.5 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    y = np.stack([tone] + [synth_audio(rng, 2.0)[: 2 * SR] for _ in range(7)])
+    f0_card, v_card = yin_f0(torch.from_numpy(y).to(DEV), cfg)
+    f0_cpu, v_cpu = yin_f0(torch.from_numpy(y), cfg)
+    f0_card, v_card = f0_card.cpu(), v_card.cpu()
+    inner = f0_card[0, 8:-8]
+    tone_err = (inner / 220 - 1).abs().max().item()
+    agree = ((v_card == v_cpu) & (~v_cpu | ((f0_card - f0_cpu).abs()
+                                           <= 1e-3 * f0_cpu.abs()))).float().mean().item()
+    check("zoo yin_f0 on the card", tone_err <= 0.01 and agree >= 0.99,
+          f"220 Hz tone: max relative error {tone_err:.3g} over {inner.numel()} frames (tol "
+          f"0.01); card vs CPU agree on {agree:.4f} of {f0_cpu.numel()} frames (tol 0.99); "
+          f"{int(v_cpu.sum())} voiced on the CPU")
+    return {"tone_max_rel_err": tone_err, "card_cpu_agree": agree}
+
+
+def zoo_reference_phase(seed: int) -> None:
+    """Card vs CPU (`gan_step_card_vs_cpu`) for two small float32 pairs at
+    Flax-init weights: HiFi-GAN (32 channels) against MPD (periods 2, 3, a
+    quarter width) + MS-SB-CQT (its three published scales), and
+    NSF-HiFiGAN against MPD with its excitation draws made once on the CPU
+    and given to both."""
+    from amphion_tpu_torch.models.vocoders.gan_trainer import CombinedDiscriminator
+    from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig, HiFiGANGenerator
+    from amphion_tpu_torch.models.vocoders.nsf_hifigan import (
+        NSFHiFiGANConfig, NSFHiFiGANGenerator)
+    from amphion_tpu_torch.ops.f0 import F0Config, yin_f0
+    from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram_ref
+
+    mel_cfg = MelConfig(**ZOO_SMALL_MEL)
+    gen = torch.Generator().manual_seed(seed + 59)
+    rng = np.random.default_rng(seed + 59)
+    audio = torch.from_numpy(np.stack([synth_audio(rng, 0.25)[:4096] for _ in range(4)]))
+    mel = mel_spectrogram_ref(audio, mel_cfg).transpose(1, 2).contiguous()
+    hifi = HiFiGANConfig(**ZOO_SMALL_HIFI)
+    g = perturbed_flax_init(HiFiGANGenerator(hifi), gen)
+    d = perturbed_flax_init(CombinedDiscriminator(("mpd", "mssbcqt"), (2, 3), channel_mult=0.25,
+                                                  sample_rate=24000), gen)
+    gan_step_card_vs_cpu("small f32 HiFi-GAN + MPD + MS-SB-CQT step", g, d, mel_cfg,
+                         {"audio": audio, "mel": mel})
+    f0, _ = yin_f0(audio, F0Config(sample_rate=24000, hop_size=16, frame_length=256))
+    nsf = perturbed_flax_init(NSFHiFiGANGenerator(NSFHiFiGANConfig(base=hifi)), gen)
+    d = perturbed_flax_init(CombinedDiscriminator(("mpd",), (2, 3), channel_mult=0.25), gen)
+    f0 = f0[:, : mel.shape[1]]
+    draws = nsf.draw(mel, f0, gen)
+    gan_step_card_vs_cpu("small f32 NSF-HiFiGAN step (draws given)", nsf, d, mel_cfg,
+                         {"audio": audio, "mel": mel, "f0": f0}, ("mel", "f0"), draws)
+
+
+def zoo_phase(seed: int, kernels: dict, rows: list) -> dict:
+    """The rest of the GAN vocoders, each at its egs/vocoder/gan recipe's
+    width through `bins/vocoder/{train,inference}.py` on a synthetic corpus
+    (`zoo_recipe`), one HiFi-GAN step against MPD + MS-STFT (no recipe sets
+    it), YIN on the card, and two small steps card vs CPU; kernel 3's row of
+    the timing line gets the path's launches and errors."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    zoo_reference_phase(seed)
+    yin = zoo_yin_check(seed)
+    root = Path(tempfile.mkdtemp(prefix="zoo_"))
+    out = {}
+    try:
+        from amphion_tpu_torch.data.metadata import load_metadata, save_metadata
+
+        gan_corpus(root, seed, n=ZOO_CLIPS)
+        utts = load_metadata(root / "data" / "smoke" / "train.json")
+        save_metadata(root / "data" / "one_batch" / "train.json", utts[:16])
+        for recipe in ZOO_RECIPES + ("msstft",):
+            out[recipe] = zoo_recipe(root, recipe, kernels, seed)
+            shutil.rmtree(root / "ckpts" / recipe, ignore_errors=True)
+            r = out[recipe]
+            which = "its one step (cuDNN's plans included)" if recipe == "msstft" else \
+                f"median step of {ZOO_STEPS}"
+            log(f"zoo {recipe} perf ({nvidia_smi()}): {r['generator']}, {which} "
+                f"{r['median_step_s']:.4f} s, {r['audio_s_per_s']:.2f} audio s of training a s, "
+                f"peak {r['max_memory_allocated_gib']:.2f} GiB"
+                + (f", copy synthesis {r['synth_audio_s_per_s']:.2f} audio s/s"
+                   if "synth_audio_s_per_s" in r else "") + "; " + json.dumps(r))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = next(r for r in rows if r["name"] == "mel_spectrogram")
+    row["gan_zoo"] = {
+        "launches": {k: v["mel_launches"] for k, v in out.items()},
+        "copy_synthesis_launches": {k: v["synth_mel_launches"] for k, v in out.items()
+                                    if "synth_mel_launches" in v},
+        "launches_per_step": {k: v["mel_launches"] / v["steps"] for k, v in out.items()},
+        "launches_per_file": {k: v["synth_mel_launches"] / v["synth_files"]
+                              for k, v in out.items() if "synth_mel_launches" in v},
+        "max_abs_err_vs_log_mel_ref": max(max(v["mel_check"]["real"]["vs_log_mel_ref"],
+                                              v["mel_check"]["fake"]["vs_log_mel_ref"])
+                                          for v in out.values())}
+    return {"recipes": out, "yin": yin}
 
 
 # -- MaskGCT: bins/serve.py's default backend (kernels 6, 3 and 1) -----------------
@@ -4799,6 +5102,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("gan training")
+    zoo_phase(args.seed, kernels, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("gan vocoder zoo")
     maskgct_reference_phase(args.seed)
     mg = maskgct_phase(args.seed, kernels)
     for r in rows:  # kernel 1's first model path

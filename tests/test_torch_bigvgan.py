@@ -78,23 +78,31 @@ def _fill(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-@functools.lru_cache(maxsize=2)
-def _tiny(pallas: bool):
+@functools.lru_cache(maxsize=3)
+def _tiny(pallas: bool, activation: str = "snakebeta"):
     """(Flax tree, jitted JAX apply, port generator) of the tiny generator
-    with ``use_pallas_act=pallas``, built once per test process."""
+    with ``use_pallas_act=pallas`` and ``activation``, built once per test
+    process."""
     if pallas:
         pk._aa_polyphase_taps()  # probe the taps eagerly, not inside the trace
-    jgen = JBigVGAN(JBigVGANConfig(**TINY, use_pallas_act=pallas))
+    kw = dict(TINY, use_pallas_act=pallas, activation=activation)
+    jgen = JBigVGAN(JBigVGANConfig(**kw))
     shapes = jax.eval_shape(jgen.init, jax.random.PRNGKey(0), jnp.zeros((1, 4, 80)))["params"]
     tree = jax.tree_util.tree_map(np.asarray, _fill(shapes, seed=1))
     apply = jax.jit(lambda m: jgen.apply({"params": tree}, m))
-    port = BigVGANGenerator(BigVGANConfig(**TINY, use_pallas_act=pallas)).eval()
+    port = BigVGANGenerator(BigVGANConfig(**kw)).eval()
     return tree, apply, from_flax(port, tree)
 
 
-@pytest.mark.parametrize("pallas", [True, False], ids=["fused", "chain"])
-def test_bigvgan_matches_jax(pallas):
-    _, apply, port = _tiny(pallas)
+@pytest.mark.parametrize("pallas,activation", [(True, "snakebeta"), (False, "snakebeta"),
+                                               (True, "snake")],
+                         ids=["fused", "chain", "snake_fused"])
+def test_bigvgan_matches_jax(pallas, activation):
+    """The tiny generator against JAX's, with the fused anti-aliased
+    activation (JAX's Pallas kernel in interpret mode, the port's plain
+    version) or the unfused chain; SnakeBeta, and Snake (``activation:
+    "snake"``) fused."""
+    _, apply, port = _tiny(pallas, activation)
     mel = np.random.default_rng(2).standard_normal((2, FRAMES, 80)).astype(np.float32)
     ref = np.asarray(apply(jnp.asarray(mel)))
     with torch.no_grad():
@@ -322,5 +330,12 @@ def test_restore_generator_takes_only_the_vocoder_layout(cli_run):
 
 
 def test_other_generators_are_not_ported():
-    with pytest.raises(NotImplementedError, match="hifigan"):
-        build_generator(load_config(ROOT / "config/vocoder.json"), 80)
+    """Every generator JAX's factory builds is ported (config/vocoder.json's
+    default, HiFi-GAN, among them); a generator JAX does not know raises,
+    as JAX's factory does."""
+    cfg = load_config(ROOT / "config/vocoder.json")
+    gen, hop = build_generator(cfg, 80)
+    assert (type(gen).__name__, hop) == ("HiFiGANGenerator", 120)
+    cfg["model"]["generator"] = "wavenet"
+    with pytest.raises(ValueError, match="unknown generator 'wavenet'"):
+        build_generator(cfg, 80)

@@ -3,7 +3,8 @@
 synthetic corpus (clips longer than a segment, so crops are drawn), a
 checkpoint at each step, a resume from the first that repeats the second
 step's losses, the checkpoint read back by `restore_generator` and by the
-vocoder inference CLI, and the parts that are not ported raising. The CPU
+vocoder inference CLI, and the parts that are not ported (a bf16
+``compute_dtype``, DiffWave) raising. The CPU
 runs are deterministic, so the resumed losses are held to 1e-6 relative.
 """
 
@@ -117,12 +118,9 @@ def test_gan_trainer_two_steps_save_resume_and_synthesize(corpus):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"model": {"discriminators": ["mpd", "msstft"]}}, "ROADMAP.md A5"),
-    ({"model": {"discriminators": ["mssbcqt"]}}, "ROADMAP.md A5"),
     ({"train": {"compute_dtype": "bfloat16"}}, "ROADMAP.md A5"),
-    ({"model_type": "Vocos"}, "ROADMAP.md A6"),
-    ({"model_type": "DiffusionVocoder"}, "ROADMAP.md A6"),
-], ids=["msstft", "mssbcqt", "bf16", "vocos", "diffwave"])
+    ({"model_type": "DiffusionVocoder"}, "ROADMAP.md A5"),
+], ids=["bf16", "diffwave"])
 def test_gan_trainer_raises_where_not_ported(corpus, change, match):
     root, config = corpus
     path = config("todo", model=change.get("model"), max_steps=1, **change.get("train", {}))

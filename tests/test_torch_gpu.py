@@ -1180,3 +1180,116 @@ def test_gan_step_card_matches_cpu(cuda):
         total += diff.numel()
         assert diff.max().item() <= 2.1 * lr
     assert off <= 1e-3 * total, (off, total)
+
+
+def _hifigan_checkpoint(tmp_path):
+    """A HiFi-GAN at the egs width (`egs/vocoder/gan/hifigan`) drawn by
+    `init_like_flax`, its last conv's scale cut to 0.1 so that the tanh is
+    not saturated, saved as a vocoder checkpoint; a 1 s synthetic file."""
+    import numpy as np
+
+    from amphion_tpu_torch.data.audio_io import save_wav
+    from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig, HiFiGANGenerator
+    from amphion_tpu_torch.runtime.vocoder_trainer import save_generator
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    gen = init_like_flax(HiFiGANGenerator(HiFiGANConfig()), torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        gen.Conv_1.scale.mul_(0.1)
+    save_generator(tmp_path / "ckpt", gen)
+    t = np.arange(24000) / 24000.0
+    x = 0.3 * np.sin(2 * np.pi * 180 * t * (1 + 0.2 * t)) + 0.01 * np.sin(2 * np.pi * 3100 * t)
+    save_wav(tmp_path / "wav" / "a.wav", x.astype(np.float32), 24000)
+    return gen
+
+
+def test_vocoder_cli_computes_float32_convolutions_in_float32(cuda, tmp_path, monkeypatch):
+    """`bins/vocoder/inference.py` turns TF32 off itself: with PyTorch's
+    default (cuDNN's TF32 on) set before the call, the CLI's HiFi-GAN output
+    (taken before the PCM16 wav) is within 1e-4 of its max|ref| of a float64
+    forward of the same weights on the same mel. The same forward with TF32
+    on lands near 1e-3 of max|ref|, which this tolerance catches."""
+    import numpy as np
+
+    from amphion_tpu_torch.bins.vocoder import inference
+    from amphion_tpu_torch.data.audio_io import load_wav
+
+    gen = _hifigan_checkpoint(tmp_path)
+    written = []
+    save = inference.save_wav
+    monkeypatch.setattr(inference, "save_wav",
+                        lambda path, x, sr: (written.append(np.asarray(x)), save(path, x, sr)))
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default; the fixture restores it
+    inference.main(["--config", "egs/vocoder/gan/hifigan/exp_config.json", "--checkpoint_path",
+                    str(tmp_path / "ckpt"), "--output_dir", str(tmp_path / "out"), "--mode",
+                    "from_audio", "--audio_dir", str(tmp_path / "wav")])
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    x, _ = load_wav(tmp_path / "wav" / "a.wav", sr=24000)
+    mel = mel_spectrogram(torch.from_numpy(x).to(cuda)[None], MelConfig()).transpose(1, 2)
+    with torch.no_grad():
+        ref = gen.double().to(cuda)(mel.double())[0].cpu().numpy()
+        gen.float()
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = gen(mel)[0].cpu().numpy()
+    assert len(written) == 1 and written[0].shape == ref.shape
+    assert np.mean(np.abs(ref) > 0.99) < 0.05  # not saturated by the tanh
+    scale = np.abs(ref).max()
+    err, err_tf32 = np.abs(written[0] - ref).max() / scale, np.abs(tf32 - ref).max() / scale
+    print(f"max|ref| {scale:.4g}; relative error float32 {err:.3g}, TF32 {err_tf32:.3g}")
+    assert err <= 1e-4, (err, err_tf32)
+    assert err_tf32 > 1e-4, (err, err_tf32)
+
+
+def test_yin_and_cqt_card_match_cpu(cuda):
+    """`ops/f0.yin_f0` at the base front end (24 kHz, hop 120) and
+    `ops/cqt.cqt` at MS-SB-CQT's first scale (48 kHz, hop 512, 9 octaves of
+    24 bins) on the card against the CPU: F0 within 1e-3 relative or both
+    unvoiced on at least 99 % of the frames (a frame near the voicing
+    threshold may flip), the CQT within 1e-5 of its max|ref|."""
+    import numpy as np
+
+    from amphion_tpu_torch.ops.cqt import cqt
+    from amphion_tpu_torch.ops.f0 import F0Config, yin_f0
+
+    rng = np.random.default_rng(0)
+    t = np.arange(48000) / 24000.0
+    rows = [np.sin(2 * np.pi * f * t * (1 + 0.1 * np.sin(3 * t))) for f in (110, 220, 347)]
+    rows.append(rng.standard_normal(t.shape) * 0.1)
+    y = torch.from_numpy((0.4 * np.stack(rows)).astype(np.float32))
+    f_cpu, v_cpu = yin_f0(y, F0Config())
+    f_gpu, v_gpu = (a.cpu() for a in yin_f0(y.to(cuda), F0Config()))
+    agree = (v_gpu == v_cpu) & (~v_cpu | ((f_gpu - f_cpu).abs() <= 1e-3 * f_cpu.abs()))
+    assert agree.float().mean().item() >= 0.99
+    assert v_cpu[:3].float().mean().item() > 0.9
+    kw = dict(sr=48000, hop_length=512, n_bins=216, bins_per_octave=24)
+    c_cpu = cqt(y, **kw)
+    c_gpu = cqt(y.to(cuda), **kw).cpu()
+    assert c_gpu.shape == c_cpu.shape
+    assert (c_gpu - c_cpu).abs().max().item() <= 1e-5 * c_cpu.abs().max().item()
+
+
+def test_hifigan_gan_step_launches_mel_kernel_three_times(cuda):
+    """A HiFi-GAN GAN step as the trainer runs it, on the card: kernel 3 once
+    for the batch's mel and twice in the mel loss (the fake's through
+    `LogMelFn`), no other kernel; every loss finite."""
+    from amphion_tpu_torch.models.vocoders.gan_trainer import (
+        CombinedDiscriminator, GANTrainConfig, create_gan_states, make_gan_train_step)
+    from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig, HiFiGANGenerator
+    from amphion_tpu_torch.ops.kernels.aa_snake import AA_SNAKE
+    from amphion_tpu_torch.ops.kernels.snake import SNAKE
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    mel_cfg = MelConfig(**GAN_SMALL["mel"])
+    gen = torch.Generator(cuda).manual_seed(1)
+    g = init_like_flax(HiFiGANGenerator(HiFiGANConfig(
+        upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=64,
+        n_mel=32)).to(cuda), gen)
+    d = init_like_flax(CombinedDiscriminator(("mpd", "msd"), (2, 3), 1, 0.25).to(cuda), gen)
+    gs, ds = create_gan_states(g, d, GANTrainConfig())
+    audio = 0.3 * torch.sin(torch.arange(4 * 2048, device=cuda).reshape(4, -1) * 0.07)
+    counts = [k.launches for k in (MEL, AA_SNAKE, SNAKE)]
+    mel = mel_spectrogram(audio, mel_cfg).transpose(1, 2)
+    _, _, m = make_gan_train_step(mel_cfg)(gs, ds, {"audio": audio, "mel": mel})
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip((MEL, AA_SNAKE, SNAKE), counts)] == [3, 0, 0]
+    assert all(torch.isfinite(v).item() for v in m.values())
