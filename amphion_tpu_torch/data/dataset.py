@@ -2,7 +2,8 @@
 `amphion_tpu/data/dataset.py`): `SegmentAudioDataset` serves fixed-length
 numpy waveform crops (random offsets in clips longer than a segment, zero
 padding of shorter ones), whose spectral features the trainers' batch
-makers compute on the device; `Prefetcher` makes the next batches on a
+makers compute on the device; `pad_batch` stacks variable-length arrays
+(the TTS trainers' phone rows); `Prefetcher` makes the next batches on a
 background thread.
 """
 
@@ -52,6 +53,18 @@ class SegmentAudioDataset:
             start = int(rng.integers(0, len(x) - seg))
             out = x[start: start + seg]
         return {"audio": out, "uid": self.utts[i].uid}
+
+
+def pad_batch(arrays: list[np.ndarray], target_len: int | None = None, axis: int = 0):
+    """Stack variable-length arrays with zero padding; returns (batch, lengths)."""
+    lengths = np.asarray([a.shape[axis] for a in arrays], np.int32)
+    t = int(target_len if target_len is not None else lengths.max())
+    out = []
+    for a in arrays:
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, t - a.shape[axis])
+        out.append(np.pad(a, pad))
+    return np.stack(out), lengths
 
 
 class Prefetcher:

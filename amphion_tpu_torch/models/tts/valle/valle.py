@@ -10,7 +10,18 @@ Both stages are the port's Llama backbone (`modules/llama.py`): the AR a
 key mask (kernel 6 in every layer on the card). Submodules carry the Flax
 scope names (``phone_embed``, ``audio_embed_{q}``, ``ar``, ``nar``,
 ``stage_embed``, ``ar_head``, ``nar_head``), so `utils/convert.from_flax`
-loads a JAX `VALLE` tree unchanged. The training losses are not ported.
+loads a JAX `VALLE` tree unchanged.
+
+Training (`train_loss`, JAX l.92-189) computes both stages' losses from
+one batch: the AR's teacher-forced cross-entropy on codebook 0 over
+``[phones; codes]`` (causal flash attention with the key mask, kernels 6
+and 7 in every layer; padded phones leave holes between the real phones
+and the codes), EOS scored at each row's length, and the NAR's on one
+stage a row, drawn in [1, Q), with a random acoustic prefix (``prefix_mode``
+1: ``plen`` in [low, 2·low), low = 0.25 of the batch's shortest row,
+capped at ``max_prefix_len``) that sums every codebook and is not scored.
+The draws (``stage``, ``plen``) come from the caller or else from a
+``torch.Generator``, so a test can feed JAX's.
 
 Generation follows the JAX functions: the decode loop runs ``max_new``
 steps with the EOS freeze on the device (`ar_transformer.decode_loop`);
@@ -37,6 +48,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from amphion_tpu_torch.models.tts.losses import masked_nll
 from amphion_tpu_torch.models.vc.ar_transformer import (
     DECODE_DTYPES,
     check_decode_dtype,
@@ -70,6 +82,11 @@ class VALLEConfig:
     max_position: int = 4096
     decode_quant: str = "none"  # the AR's projections: "none" | "int8" | "int4"
     kv_quant: bool = False  # the AR's int8 KV cache
+    remat: bool = False  # recompute each block's activations in the backward
+    # the NAR's acoustic prefix in training: 0 none, 1 a random prefix of each
+    # row that sums every codebook and is not scored (the recipes' mode)
+    prefix_mode: int = 1
+    max_prefix_len: int = 225
 
     @property
     def eos_id(self) -> int:
@@ -78,7 +95,7 @@ class VALLEConfig:
     def llama(self, adaptive: bool = False) -> LlamaConfig:
         return LlamaConfig(
             hidden_size=self.hidden, num_layers=self.num_layers, num_heads=self.num_heads,
-            max_position=self.max_position, adaptive=adaptive,
+            max_position=self.max_position, adaptive=adaptive, remat=self.remat,
             decode_quant="none" if adaptive else self.decode_quant,
             kv_quant=False if adaptive else self.kv_quant)
 
@@ -121,6 +138,24 @@ class VALLE(nn.Module):
         return self.ar_head(h)
 
     # -- AR stage ---------------------------------------------------------------
+    def ar_forward(self, phones, phone_mask, tokens, token_mask):
+        """Teacher-forced AR logits (B, T+1, V+1) over ``[phones; tokens]``
+        (tokens (B, T), codebook 0): the last phone position predicts token 0,
+        token t predicts token t+1, the last predicts EOS."""
+        x = torch.cat([self.phone_embed(phones), self.audio_embed(0)(tokens)], dim=1)
+        h = self.ar(x, mask=torch.cat([phone_mask, token_mask], dim=1))
+        return self.ar_head(h[:, phones.shape[1] - 1:])
+
+    def ar_loss(self, phones, phone_mask, tokens, token_mask):
+        """Cross-entropy of every real token and of the EOS right after the
+        last one (index ``length`` of the T+1 axis)."""
+        logits = self.ar_forward(phones, phone_mask, tokens, token_mask)
+        targets = torch.cat([tokens, torch.full_like(tokens[:, :1], self.cfg.eos_id)], dim=1)
+        w = torch.cat([token_mask, torch.zeros_like(token_mask[:, :1])], dim=1)
+        lengths = token_mask.sum(dim=1).long()
+        w = w.scatter(1, lengths[:, None], 1.0)
+        return masked_nll(logits, targets, w)
+
     def ar_prefill(self, phones, prompt_tokens, caches):
         """[phones; prompt] written at cache position 0 → (last logits, caches)."""
         x = torch.cat([self.phone_embed(phones), self.audio_embed(0)(prompt_tokens)], dim=1)
@@ -173,6 +208,44 @@ class VALLE(nn.Module):
         mask = torch.cat([phone_mask, token_mask], dim=1)
         h = self.nar(x, cond=self.stage_embed(stage - 1), mask=mask)
         return self.nar_head(h[:, phones.shape[1]:])
+
+    def nar_loss(self, phones, phone_mask, tokens_all, token_mask, stage, prompt_mask=None):
+        """Cross-entropy of codebook ``stage`` at the real positions outside
+        the prompt."""
+        logits = self.nar_forward(phones, phone_mask, tokens_all, token_mask, stage,
+                                  prompt_mask)
+        idx = stage.long()[:, None, None].expand(-1, 1, tokens_all.shape[2])
+        targets = tokens_all.gather(1, idx)
+        w = token_mask if prompt_mask is None else token_mask * (1.0 - prompt_mask)
+        return masked_nll(logits, targets[:, 0], w)
+
+    def train_draws(self, token_mask, generator=None, stage=None, plen=None):
+        """The NAR's draws → (stage (B,) in [1, Q), prompt mask (B, T) or
+        None): each given one is kept, the others drawn from ``generator``
+        on the device, with no read on the host."""
+        c = self.cfg
+        b, dev = token_mask.shape[0], token_mask.device
+        if stage is None:
+            stage = torch.randint(1, c.num_quantizers, (b,), generator=generator, device=dev)
+        stage = stage.to(dev, torch.long)
+        if c.prefix_mode != 1:
+            return stage, None
+        if plen is None:  # U[low, low + max(low, 1)), low = 0.25 of the shortest row
+            low = torch.floor(0.25 * token_mask.sum(dim=1).min())
+            u = torch.rand((), generator=generator, device=dev)
+            plen = low + torch.floor(u * torch.clamp(low, min=1.0))
+        plen = torch.clamp(torch.as_tensor(plen, device=dev), max=c.max_prefix_len)
+        pos = torch.arange(token_mask.shape[1], device=dev)[None, :]
+        return stage, (pos < plen).to(token_mask.dtype) * token_mask
+
+    def train_loss(self, phones, phone_mask, tokens_all, token_mask, generator=None,
+                   stage=None, plen=None):
+        """The joint objective: the AR's loss on codebook 0 plus the NAR's
+        on a drawn stage → (loss, {"ar_loss", "nar_loss"})."""
+        ar = self.ar_loss(phones, phone_mask, tokens_all[:, 0], token_mask)
+        stage, prompt_mask = self.train_draws(token_mask, generator, stage, plen)
+        nar = self.nar_loss(phones, phone_mask, tokens_all, token_mask, stage, prompt_mask)
+        return ar + nar, {"ar_loss": ar, "nar_loss": nar}
 
     def nar_generate(self, phones, phone_mask, tokens0, token_mask, prompt_tokens=None):
         """Greedy NAR decoding of codebooks 1..Q-1 given codebook 0 (B, T);

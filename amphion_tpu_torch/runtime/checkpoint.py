@@ -93,7 +93,10 @@ class CheckpointManager:
     def restore_raw(self, checkpoint_path: str | None = None,
                     map_location=None) -> tuple[dict, int, int]:
         """The saved dictionary of a checkpoint (the latest by default) →
-        (state, epoch, step). Raises on an Orbax directory."""
+        (state, epoch, step). The file is mapped, not read: a tensor is paged
+        in when it is used, so an inference that takes a trained model's
+        weights leaves its optimizer moments unread. Raises on an Orbax
+        directory."""
         path = Path(checkpoint_path or self.latest() or "")
         if not path.name:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}")
@@ -104,7 +107,8 @@ class CheckpointManager:
                     f"reads only its own format ({STATE} from torch.save)")
             raise FileNotFoundError(f"{path} holds no {STATE}")
         epoch, step = parse_ckpt_name(path.name)
-        state = torch.load(path / STATE, map_location=map_location, weights_only=True)
+        state = torch.load(path / STATE, map_location=map_location, weights_only=True,
+                           mmap=True)
         return state, epoch, step
 
     def restore(self, state, checkpoint_path: str | None = None,

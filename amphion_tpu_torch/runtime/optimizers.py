@@ -9,7 +9,8 @@ optax's defaults are kept where they differ from PyTorch's:
 - ``optax.adamw`` decays every parameter (biases and norm scales too) by
   weight_decay 1e-4, with betas (0.9, 0.999) and eps 1e-8;
   ``torch.optim.AdamW`` defaults to 1e-2. The update is the same decoupled
-  AdamW, so `torch.optim.AdamW` carries it with optax's numbers.
+  AdamW, so `torch.optim.AdamW` carries it with optax's numbers (the
+  VALL-E trainer's ``adamw(lr, b1, b2, weight_decay=0.01)`` passes its own).
 - ``optax.clip_by_global_norm`` leaves the gradients alone below the norm
   and otherwise computes ``g / norm * max_norm``;
   ``torch.nn.utils.clip_grad_norm_`` multiplies by ``max_norm / (norm +
@@ -42,21 +43,22 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 
 
 class ClipAdamW:
-    """``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2))`` with
-    optax's defaults over ``params``, the schedule
+    """``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    weight_decay))`` with optax's defaults over ``params``, the schedule
     ``exponential_decay(lr, decay_steps, decay_rate)`` (a constant ``lr`` at
     the default ``decay_rate`` 1); ``max_norm=None`` leaves out the clip.
     `apply` takes one gradient per parameter."""
 
     def __init__(self, params, lr: float, max_norm: float | None = 1.0,
                  betas: tuple[float, float] = OPTAX_ADAMW["betas"],
-                 decay_rate: float = 1.0, decay_steps: int = 1):
+                 decay_rate: float = 1.0, decay_steps: int = 1,
+                 weight_decay: float = OPTAX_ADAMW["weight_decay"]):
         self.params = list(params)
         self.max_norm = max_norm
         self.lr, self.decay_rate, self.decay_steps = lr, decay_rate, decay_steps
         self.count = 0  # updates applied
-        self.adamw = torch.optim.AdamW(self.params, lr=lr,
-                                       **{**OPTAX_ADAMW, "betas": tuple(betas)})
+        self.adamw = torch.optim.AdamW(self.params, lr=lr, **{
+            **OPTAX_ADAMW, "betas": tuple(betas), "weight_decay": weight_decay})
 
     def apply(self, grads: list[torch.Tensor]) -> None:
         """Clip ``grads`` (in place) and take one AdamW step at the

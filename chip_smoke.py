@@ -74,7 +74,7 @@ at the full width of ``config/vevo.json`` with random weights from
   `serving/loadgen.py`, and `bins/tts/inference.py` in its MaskGCT mode;
 - VALL-E zero-shot TTS as `bins/serve.py --backend valle` serves it, at the
   width of ``egs/tts/VALLE/exp_config.json`` (1024 x 12 layers, FFN 2816,
-  8 x 1 024 codes; 384 AR steps, the CLI's 768 cut for the run's time): port
+  8 x 1 024 codes; 256 AR steps, the CLI's 768 cut for the run's time): port
   checkpoints from random weights, the model and codec built by
   `bins/tts/inference.build_valle`; the int8 continuous engine (graphs)
   with four requests a chunk apart, each equal to its solo decode and to
@@ -85,6 +85,15 @@ at the full width of ``config/vevo.json`` with random weights from
   64-step int4 solo decode, a small float32 VALL-E card vs CPU, `bins/
   serve.py --backend valle` answering six requests at the CLI's defaults,
   and `bins/tts/inference.py` in its VALLE mode;
+- VALL-E and MaskGCT training as their recipes run it (`tts_training_phase`):
+  96 synthetic LibriTTS-layout clips through `bins/tts/preprocess.py`
+  (codes; for MaskGCT semantic tokens and latents; #1 29 and #3 one a file
+  or batch), `bins/tts/train.py` at the recipes' widths and ``max_tokens``
+  16 000 in float32 (VALL-E 1024 x 12 AR + NAR; T2S and S2A 1024 x 16) for
+  4 steps with a checkpoint at step 2 and a resume from it that must repeat
+  steps 3-4 to the bit (#6 and #7 24 and 32 a step), `bins/tts/inference.py`
+  from the trained checkpoints, small full-width steps card vs CPU, and
+  #6/#7 at the recorded training shapes against float64 and timed;
 
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
@@ -102,11 +111,11 @@ paths gave it (by CUDA-graph replays, beside SDPA timed the same way for
 the flash kernels), and profiles a decode chunk of each engine, two steps
 of each trainer and one 10 s copy synthesis. Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--max-new 384]
+    python3 chip_smoke.py [--seed 0] [--max-new 256]
 
 ``--max-new`` is the voice window batches' AR depth; the voice engine runs
 stop at ``ENGINE_MAX_NEW`` (192) steps and VALL-E's at ``VALLE_MAX_NEW``
-(384), cuts made for the run's time. Exits nonzero on any failure, and at
+(256), cuts made for the run's time. Exits nonzero on any failure, and at
 once when there is no CUDA card. The
 last three lines of standard output are the ``{"kernels": [...]}`` timing
 line, then the card's name and power limit (``nvidia-smi
@@ -4260,7 +4269,7 @@ def mg_kernel_rows(flash_calls, snake_shapes: dict, launches: dict, flash_err: f
 
 VALLE_CONFIG = "egs/tts/VALLE/exp_config.json"
 VALLE_LAYERS, VALLE_HIDDEN, VALLE_FFN, VALLE_VOCAB = 12, 1024, 2816, 1025  # config/valle.json
-VALLE_MAX_NEW = 384  # the AR's steps (the CLI's --max_new is 768; cut for the run's time)
+VALLE_MAX_NEW = 256  # the AR's steps (the CLI's --max_new is 768; cut for the run's time)
 # (prompt text, target text): 65, 83, 109 and 118 phones (char G2P), one phone bucket (128)
 VALLE_TEXTS = [
     ("the quick brown fox jumps", "over the lazy dog by the old river bank"),
@@ -5007,10 +5016,609 @@ def valle_phase(seed: int, kernels: dict, max_new: int) -> dict:
     return out
 
 
+# -- codec-LM training: bins/tts/{preprocess,train}.py --------------------------------
+
+TTS_CLIPS = 96  # 95 train + 1 test (the adapter's 2 % split, one at least)
+# 3.2-3.45 s: the codes (100 Hz) all in bucket 410, 39 rows a batch; the semantic
+# tokens (200 Hz) all in bucket 693, 23 rows a batch (rows cut to the codes, JAX's rule)
+TTS_SECONDS = (3.2, 3.45)
+TTS_STEPS, TTS_SAVE = 4, 2  # steps of the run; the checkpoint the resume starts from
+TTS_MAX_NEW = 64  # the VALL-E CLI's AR steps from the trained checkpoint
+TTS_MODELS = {  # name → (recipe, preprocess switches, attention layers a step: forward + backward)
+    "valle": (VALLE_CONFIG, ["--extract_codes"], 2 * 12),
+    "maskgct": (MG_CONFIG, ["--extract_codes", "--extract_semantic"], 2 * MG_LAYERS),
+}
+TTS_WORDS = ("the a of and to in is was he for it with as his on be at by had not are but "
+             "from or have an they which one you were her all she there would their we him "
+             "been has when who will more no if out so said what up its about into than them "
+             "can only other new some could time these two may then do first any my now such "
+             "like our over man me even most made after also did many before must through back "
+             "years where much your way well down should because each just those people mister "
+             "how too little state good very make world still own see men work long get here "
+             "between both life being under never day same another know while last might us "
+             "great old year off come since against go came right used take three").split()
+
+
+def tts_corpus(root, seed: int) -> list:
+    """``TTS_CLIPS`` seeded clips in LibriTTS's layout
+    (<split>/<spk>/<chapter>/<uid>.wav beside <uid>.normalized.txt), each a
+    sentence of 7-11 common words → [(wav path, text)]."""
+    from amphion_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(seed + 41)
+    out = []
+    for i in range(TTS_CLIPS):
+        spk, chap = 100 + i % 4, 10 + i % 3
+        d = root / "raw" / "train-clean-100" / str(spk) / str(chap)
+        d.mkdir(parents=True, exist_ok=True)
+        uid = f"{spk}_{chap}_{i:06d}"
+        save_wav(d / f"{uid}.wav", synth_audio(rng, float(rng.uniform(*TTS_SECONDS))), SR)
+        text = " ".join(rng.choice(TTS_WORDS, int(rng.integers(7, 12)))).capitalize() + "."
+        (d / f"{uid}.normalized.txt").write_text(text)
+        out.append((str(d / f"{uid}.wav"), text))
+    return out
+
+
+def tts_config(root, name: str, run: str, **train) -> str:
+    """The recipe of ``name`` at its published widths and ``max_tokens``
+    (16 000), over the corpus, with phones on (`config/base.json` sets
+    them off), a log dir and a metrics file under ``root``."""
+    cfg = {"base_config": os.path.abspath(TTS_MODELS[name][0]), "dataset": ["libritts"],
+           "dataset_path": {"libritts": str(root / "raw")}, "log_dir": str(root / "ckpts"),
+           "preprocess": {"processed_dir": str(root / name / "processed"),
+                          "extract_phone": True},
+           "train": {"log_interval": 1, "metrics_path": str(root / f"{name}_{run}.jsonl"),
+                     **train}}
+    path = root / f"{name}_{run}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def tts_codecs(root, name: str, cfg_path: str, seed: int) -> list:
+    """Port checkpoints of the recipe's Amphion codec (`mg_codec_unsaturated`)
+    and, for MaskGCT, of its semantic RepCodec, from random weights of
+    ``seed``, shared by preprocessing and inference → their CLI flags."""
+    import types
+
+    from amphion_tpu_torch.bins.tts.inference import _codec_config
+    from amphion_tpu_torch.bins.tts.preprocess import semantic_codec_config
+    from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec
+    from amphion_tpu_torch.models.codec.repcodec import RepCodec
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+    from amphion_tpu_torch.utils.config import load_config
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    cfg = load_config(cfg_path)
+    g = torch.Generator(DEV).manual_seed(seed + 43)
+    modules = {"codec": lambda: AmphionCodec(_codec_config(cfg))}
+    if "--extract_semantic" in TTS_MODELS[name][1]:
+        modules["semantic"] = lambda: RepCodec(semantic_codec_config(cfg), with_decode=True)
+    flags = []
+    for key, make in modules.items():
+        with torch.device(DEV):
+            module = init_like_flax(make(), g)
+        if key == "codec":
+            mg_codec_unsaturated(module, g)
+        where = root / name / key
+        state = types.SimpleNamespace(state_dict=lambda m=module: {"model": m.state_dict()})
+        CheckpointManager(where).save(state, 1, 0, 0.0)
+        flags += [f"--{key}_ckpt", str(where)]
+    return flags
+
+
+def first_of_each_shape():
+    """A `CallRecorder` pick that keeps a call whose first argument's shape
+    is new to it."""
+    seen = set()
+
+    def keep(i: int, args) -> bool:
+        shape = tuple(args[0].shape)
+        if shape in seen:
+            return False
+        seen.add(shape)
+        return True
+    return keep
+
+
+def tts_preprocess_kernel_checks(name: str, snake_calls: list, mel_calls: list) -> dict:
+    """Kernels 1 and 3 on the preprocessing's own inputs (the first call of
+    each shape, recorded at their wrappers): #1 bit-equal to `snake_ref`,
+    #3 within 1e-3 of `log_mel_ref` (the MaskGCT phase's rules), each
+    bit-equal on a relaunch."""
+    from amphion_tpu_torch.ops import mel as mel_ops
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+    from amphion_tpu_torch.ops.kernels.mel import log_mel_ref
+
+    bad1, worst1 = [], 0.0
+    for i, (x, alpha) in snake_calls:
+        got, ref = snake_mod.snake(x, alpha), snake_mod.snake_ref(x, alpha)
+        worst1 = max(worst1, (got - ref).abs().max().item())
+        if not (torch.equal(got, ref) and torch.equal(snake_mod.snake(x, alpha), got)):
+            bad1.append((i, tuple(x.shape)))
+    shapes1 = sorted({tuple(x.shape) for _, (x, _) in snake_calls})
+    check(f"tts preprocess {name} #1: the codec encoder's calls bit-equal to snake_ref",
+          bool(snake_calls) and not bad1,
+          f"{len(snake_calls)} shapes from {shapes1[0] if shapes1 else None} to "
+          f"{shapes1[-1] if shapes1 else None}, max|err| {worst1:.3g}; not bit-equal or not "
+          f"equal on relaunch: {bad1}")
+    bad3, worst3 = [], 0.0
+    for i, (y, fb, n_fft, hop, win, clip) in mel_calls:
+        got = mel_ops.log_mel(y, fb, n_fft, hop, win, clip)
+        err = (got - log_mel_ref(y, fb, n_fft, hop, win, clip)).abs().max().item()
+        worst3 = max(worst3, err)
+        again = torch.equal(mel_ops.log_mel(y, fb, n_fft, hop, win, clip), got)
+        if not (err <= 1e-3 and again):
+            bad3.append((i, tuple(y.shape), err, again))
+    check(f"tts preprocess {name} #3: the mel and semantic front ends' calls against "
+          "log_mel_ref (tol 1e-3)", bool(mel_calls) and not bad3,
+          f"{len(mel_calls)} shapes, the largest "
+          f"{max((tuple(y.shape) for _, (y, *_) in mel_calls), default=None)}, max|err| "
+          f"{worst3:.3g}; failing (call, shape, err, relaunch bit-equal): {bad3}")
+    return {"snake": worst1, "mel": worst3, "snake_shapes": len(snake_calls),
+            "mel_shapes": len(mel_calls)}
+
+
+def tts_preprocess(root, name: str, cfg_path: str, ckpt_flags: list, kernels: dict) -> dict:
+    """`bins/tts/preprocess.py` as the recipe's stage 1 runs it, in process:
+    the launches (kernel 3: one a batch of the acoustic features, and one a
+    file for the semantic tokens; kernel 1: the 29 activations of a codec
+    encoder pass a file; no other kernel), every file's features, and
+    kernels 1 and 3 held to their plain versions on the first call of each
+    shape (`tts_preprocess_kernel_checks`)."""
+    import inspect
+
+    from amphion_tpu_torch.bins.tts import preprocess as pre
+    from amphion_tpu_torch.data.audio_io import load_wav
+    from amphion_tpu_torch.data.metadata import load_metadata
+    from amphion_tpu_torch.data.processors.acoustic import extract_acoustic_features
+    from amphion_tpu_torch.data.samplers import LengthBucketSampler
+    from amphion_tpu_torch.ops import mel as mel_ops
+    from amphion_tpu_torch.ops.kernels import snake as snake_mod
+
+    recs = [CallRecorder(mod, fn, first_of_each_shape())
+            for mod, fn in ((snake_mod, "snake"), (mel_ops, "log_mel"))]
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    try:
+        pre.main(["--config", cfg_path, *TTS_MODELS[name][1], *ckpt_flags, "--device", DEV])
+        torch.cuda.synchronize()
+    finally:
+        for rec in recs:
+            rec.remove()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kernels.items()}
+    d = root / name / "processed" / "libritts"
+    utts = load_metadata(d / "train.json") + load_metadata(d / "test.json")
+    semantic = "--extract_semantic" in TTS_MODELS[name][1]
+    lengths = [max(len(load_wav(u.path, sr=SR)[0]) // HOP * HOP, HOP) for u in utts]
+    budget = inspect.signature(extract_acoustic_features).parameters["max_tokens"].default
+    batches = len(LengthBucketSampler(lengths, max_tokens=budget, shuffle=False))
+    want = {n: 0 for n in kernels}
+    want.update(mel=batches + (len(utts) if semantic else 0),
+                snake=MG_SNAKE_PER_PASS * len(utts))
+    check(f"tts preprocess {name}: launches", got == want,
+          f"{got} (predicted {want}: {batches} acoustic batches, {len(utts)} files)")
+    bad = []
+    for u, n in zip(utts, lengths):
+        frames = n // 240  # the codec's hop
+        codes = np.load(d / "codes" / f"{u.uid}.npy")
+        ok = codes.shape == (8 if name == "valle" else 12, frames) and (
+            d / "phones" / f"{u.uid}.json").is_file() and (d / "mels" / f"{u.uid}.npy").is_file()
+        if semantic:
+            sem, lat = (np.load(d / s / f"{u.uid}.npy") for s in ("semantic", "semantic_feats"))
+            ok = ok and sem.shape == (n // HOP,) and lat.shape == (n // HOP, 384) and bool(
+                np.isfinite(lat).all())
+        if not ok:
+            bad.append(u.uid)
+    check(f"tts preprocess {name}: every file's features", not bad and len(utts) == TTS_CLIPS,
+          f"{len(utts)} files ({len(utts) - len(bad)} complete: phones, mels, codes (Q, N)"
+          + (", semantic tokens (2N,) and latents (2N, 384)" if semantic else "") + ")")
+    errs = tts_preprocess_kernel_checks(name, recs[0].calls, recs[1].calls)
+    per_file = {"mel": got["mel"] / len(utts), "snake": got["snake"] / len(utts)}
+    log(f"tts preprocess {name}: {len(utts)} files in {wall:.1f} s; launches {got}, a file "
+        f"{per_file}; against the plain versions {errs}")
+    return {"wall_s": wall, "files": len(utts), "launches": got, "per_file": per_file,
+            "max_abs_err": {"snake": errs["snake"], "mel": errs["mel"]}}
+
+
+def tts_batches(trainer, steps: int) -> list:
+    """The (indices, bucket) batches of a run's first ``steps`` steps."""
+    out, epoch = [], 0
+    while len(out) < steps:
+        out += trainer.epoch_batches(epoch)
+        epoch += 1
+    return out[:steps]
+
+
+def tts_train(root, name: str, kernels: dict, flash_keep) -> dict:
+    """The recipe through `bins/tts/train.main` on the card: ``TTS_STEPS``
+    steps with a checkpoint at ``TTS_SAVE``; then a resume from it in a run
+    directory of its own for the remaining steps, with the flash wrapper's
+    calls picked by ``flash_keep`` recorded. Launch counts are set to 0
+    just before each run and read just after: kernels 6 and 7 once a layer
+    a step (AR + NAR, or T2S + S2A), no other kernel. The resumed run's
+    losses and final weights must equal the whole run's to the bit."""
+    import shutil
+
+    from amphion_tpu_torch.bins.tts.train import main as train_main
+    from amphion_tpu_torch.modules import llama as llama_mod
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    per_step = TTS_MODELS[name][2]
+    cfg = tts_config(root, name, "run", max_steps=TTS_STEPS, save_checkpoints_steps=TTS_SAVE)
+    for k in kernels.values():
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config", cfg, "--exp_name", name, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = {n: 0 for n in kernels}
+    want.update(flash_attn_fwd=per_step * TTS_STEPS, flash_attn_bwd=per_step * TTS_STEPS)
+    check(f"tts train {name}: launches", launches == want,
+          f"{launches} (predicted {want}: {per_step} attention layers x {TTS_STEPS} steps)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model = trainer.loop.states.model
+    n_params = sum(p.numel() for p in model.parameters())
+    rows = metrics(root, f"{name}_run")
+    loss_keys = [k for k in rows[0] if k.endswith("_loss")]
+    check(f"tts train {name}: losses", len(rows) == TTS_STEPS and all(
+        math.isfinite(r[k]) for r in rows for k in loss_keys + ["loss"]),
+        f"{[{k: r[k] for k in ['loss'] + loss_keys} for r in rows]}")
+    # tokens a step: the batch's code frames (VALL-E) or its rows' cut lengths (MaskGCT)
+    real, padded = [], []
+    for indices, bucket in tts_batches(trainer, TTS_STEPS):
+        batch = trainer.make_batch(indices, bucket)
+        mask = batch["token_mask"] if name == "valle" else batch["x_mask"]
+        real.append(float(mask.sum()))
+        padded.append(mask.numel())
+    secs = [r["step_s"] for r in rows]
+    med = statistics.median(secs[1:])
+    perf = {"params": n_params, "step_s": secs, "median_step_s": med,
+            "tokens": real, "padded_positions": padded,
+            "tokens_per_s": statistics.median(t / s for t, s in zip(real[1:], secs[1:])),
+            "padded_positions_per_s": statistics.median(
+                p / s for p, s in zip(padded[1:], secs[1:])),
+            "launches_per_step": {n: launches[n] / TTS_STEPS
+                                  for n in ("flash_attn_fwd", "flash_attn_bwd")},
+            "max_memory_allocated_gib": peak, "run_wall_s": wall}
+    log(f"tts train {name} perf ({nvidia_smi()}): {n_params / 1e6:.1f} M params, float32; "
+        f"median step {med:.4f} s over steps 2-{TTS_STEPS}, {perf['tokens_per_s']:.0f} tokens/s "
+        f"({perf['padded_positions_per_s']:.0f} padded positions/s), peak {peak:.2f} GiB; "
+        + json.dumps(perf))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckdir = root / "ckpts" / name / "checkpoint"
+    start = next(p for p in ckdir.glob("epoch-*") if f"_step-{TTS_SAVE:07d}_" in p.name)
+    cfg2 = tts_config(root, name, "resume", max_steps=TTS_STEPS, save_checkpoints_steps=0)
+    rec = CallRecorder(llama_mod, "flash_attention", flash_keep)
+    for k in kernels.values():
+        k.reset()
+    try:
+        again = train_main(["--config", cfg2, "--exp_name", f"{name}_resume", "--resume",
+                            "--resume_from_ckpt_path", str(start), "--device", DEV])
+        torch.cuda.synchronize()
+    finally:
+        rec.remove()
+    got = {n: k.launches for n, k in kernels.items()}
+    want.update(flash_attn_fwd=per_step * (TTS_STEPS - TTS_SAVE),
+                flash_attn_bwd=per_step * (TTS_STEPS - TTS_SAVE))
+    rerun = metrics(root, f"{name}_resume")
+    first = rows[TTS_SAVE:]
+    same_losses = [[r[k] for k in loss_keys] for r in rerun] == [
+        [r[k] for k in loss_keys] for r in first]
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    states = [CheckpointManager(root / "ckpts" / n / "checkpoint").restore_raw(
+        map_location="cpu") for n in (name, f"{name}_resume")]
+    a, b = states[0][0]["model"], states[1][0]["model"]
+    same_weights = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    check(f"tts train {name}: resume", same_losses and same_weights and got == want
+          and states[0][2] == states[1][2] == TTS_STEPS,
+          f"steps {TTS_SAVE + 1}-{TTS_STEPS} from the step-{TTS_SAVE} checkpoint: losses "
+          f"bit-equal {same_losses} ({[[r[k] for k in loss_keys] for r in rerun]}), step-"
+          f"{TTS_STEPS} weights bit-equal {same_weights}; launches {got} (predicted {want})")
+    del states, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "ckpts" / f"{name}_resume", ignore_errors=True)
+    shutil.rmtree(start, ignore_errors=True)
+    calls = [tuple(x.detach() if torch.is_tensor(x) else x for x in args)
+             for _, args in rec.calls]
+    return {"perf": perf, "launches": launches, "calls": calls, "loss_keys": loss_keys,
+            "losses": [[r[k] for k in loss_keys] for r in rows]}
+
+
+def tts_cli(root, name: str, ckpt_flags: list, clip: tuple, text: str) -> dict:
+    """`bins/tts/inference.py` in the recipe's mode from the trained
+    checkpoint (``log_dir/<name>/checkpoint``), the corpus's codecs, a
+    training clip as the prompt: a finite 24 kHz wav of whole codec frames
+    (VALL-E: at most ``TTS_MAX_NEW`` of them)."""
+    from amphion_tpu_torch.bins.tts import inference as tts_cli_mod
+    from amphion_tpu_torch.data.audio_io import load_wav
+
+    out = str(root / f"{name}_cli.wav")
+    argv = ["--config", tts_config(root, name, "cli"), "--exp_name", name, *ckpt_flags,
+            "--prompt_audio", clip[0], "--prompt_text", clip[1], "--text", text,
+            "--output_path", out, "--device", DEV]
+    if name == "valle":
+        argv += ["--max_new", str(TTS_MAX_NEW)]
+    t0 = time.perf_counter()
+    tts_cli_mod.main(argv)
+    wall = time.perf_counter() - t0
+    wav, sr = load_wav(out)
+    most = TTS_MAX_NEW * 240 if name == "valle" else math.inf
+    check(f"tts {name} CLI from the trained checkpoint (bins/tts/inference.py)",
+          sr == SR and 240 <= len(wav) <= most and len(wav) % 240 == 0
+          and bool(np.isfinite(wav).all()),
+          f"{len(wav)} samples at {sr} Hz ({len(wav) // 240} frames), max|x| "
+          f"{float(np.abs(wav).max()):.3g}, {wall:.1f} s")
+    return {"wall_s": wall, "samples": len(wav)}
+
+
+def tts_flash_shapes(valle: dict, mg: dict) -> dict:
+    """The recorded training calls of kernel 6 (layer 0 of each model, the
+    resumed run's first step) by name → (q, k, v, mask, causal)."""
+    (ar, nar), (t2s, s2a) = valle["calls"], mg["calls"]
+    return {"valle_ar": ar[:5], "valle_nar": nar[:5], "maskgct_t2s": t2s[:5],
+            "maskgct_s2a": s2a[:5]}
+
+
+def tts_flash_rows(shapes: dict, launches: dict, per_step: dict) -> list:
+    """Kernels 6 and 7 at the four recorded training shapes, float32 with
+    each batch's key mask (VALL-E's AR causal too), relaunched bit for bit
+    and held to float64 autograd (`dense_attention64`) from a seeded dO:
+    the output and dq, dk, dv within 1e-4 of max|ref64|, or no further from
+    float64 than the plain float32 version is (at these lengths and
+    activations, up to 30, float32 sums alone come near 1e-4); then timed
+    by graph replays beside the plain version and SDPA with the same mask
+    (`bwd_timing_phase`'s bounds: 4 D (forward) or 10 D (backward)
+    operations an attended pair at the float32 rate, or the bytes once at
+    the HBM rate; and ``*_bound_3xtf32_ms``, the same operations as three
+    TF32 products at the TF32 rate, as the kernels do them). The AR's mask
+    must hold padding holes: a row's padded phones between its real phones
+    and its codes."""
+    from amphion_tpu_torch.ops.kernels import flash_attention as flash_mod
+
+    ar_mask = shapes["valle_ar"][3]
+    real = ar_mask > 0
+    holes = int(((~real[:, :-1]) & real[:, 1:]).any(dim=1).sum())
+    check("tts flash: the AR's key mask has padding holes (causal + key mask)", holes > 0,
+          f"{holes} of {ar_mask.shape[0]} rows with a masked key before a real one")
+    g = torch.Generator(DEV).manual_seed(47)
+    per, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for name, (q, k, v, mask, causal) in shapes.items():
+        b, L, h, d = q.shape
+        with torch.no_grad():
+            out, lse = flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)
+            again = flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)
+            plain = flash_mod.attention_ref(q, k, v, mask, causal)
+            do = torch.randn(q.shape, generator=g, device=DEV)
+            grads = flash_mod.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+            grads2 = flash_mod.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+            plain_grads = flash_mod.flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal)
+        leaves = [x.double().requires_grad_() for x in (q, k, v)]
+        ref = dense_attention64(*leaves, mask, causal)
+        refs = torch.autograd.grad(ref, leaves, do.double())
+        ref = ref.detach()
+        del leaves
+        torch.cuda.synchronize()
+
+        def rel(a, r):
+            return (a.double() - r).abs().max().item() / r.abs().max().item()
+        e_f, p_f = rel(out, ref), rel(plain, ref)
+        e_b = [rel(a, r) for a, r in zip(grads, refs)]
+        p_b = [rel(a, r) for a, r in zip(plain_grads, refs)]
+        ok = e_f <= max(1e-4, p_f) and all(e <= max(1e-4, p) for e, p in zip(e_b, p_b))
+        same = torch.equal(out, again[0]) and all(torch.equal(a, b_) for a, b_ in
+                                                  zip(grads, grads2))
+        check(f"tts flash {name} ({b}, {L}, {h}, {d}) f32 causal={causal}", ok and same,
+              f"max|err|/max|ref64|: output {e_f:.3g} (plain {p_f:.3g}); dq, dk, dv "
+              f"{[f'{e:.3g}' for e in e_b]} (plain {[f'{e:.3g}' for e in p_b]}); tol 1e-4 or "
+              f"the plain version's; bit-equal on relaunch: {same}")
+        errs["fwd"] = max(errs["fwd"], (out.double() - ref).abs().max().item())
+        errs["bwd"] = max(errs["bwd"], max((a.double() - r).abs().max().item()
+                                           for a, r in zip(grads, refs)))
+        del ref, refs, plain, plain_grads, grads2, again
+        fwd = lambda: flash_mod.flash_attention(q, k, v, mask, causal, return_lse=True)  # noqa: E731
+        bwd = lambda: flash_mod.flash_attention_bwd(q, k, v, mask, out, lse, do, causal)  # noqa: E731
+        allowed = (mask > 0)[:, None, :].expand(b, L, L)
+        if causal:
+            allowed = allowed & torch.ones((L, L), dtype=torch.bool, device=DEV).tril()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt.detach(), kt.detach(), vt.detach(), attn_mask=allowed[:, None])
+        f_ms, b_ms, f_lib = graph_ms(fwd), graph_ms(bwd), graph_ms(sdpa_fwd)
+        f_plain = graph_ms(lambda: flash_mod.attention_ref(q, k, v, mask, causal,
+                                                           return_lse=True), iters=3)
+        b_plain = graph_ms(lambda: flash_mod.flash_attention_bwd_ref(
+            q, k, v, mask, out, lse, do, causal), iters=3)
+        b_lib, method, backend = sdpa_bwd_ms(qt, kt, vt, allowed, do.transpose(1, 2))
+        pairs = float(allowed.sum()) * h
+        f_bytes, b_bytes = 4.0 * (4 * b * L * h * d + b * h * L), 4.0 * (8 * b * L * h * d
+                                                                         + b * h * L)
+        f_ops, b_ops = 4.0 * d * pairs, 10.0 * d * pairs
+        f_bound = max(f_ops / PEAK_F32, f_bytes / HBM) * 1e3
+        b_bound = max(b_ops / PEAK_F32, b_bytes / HBM) * 1e3
+        f_bound_tc = max(3 * f_ops / PEAK_TF32, f_bytes / HBM) * 1e3
+        b_bound_tc = max(3 * b_ops / PEAK_TF32, b_bytes / HBM) * 1e3
+        entry = {"shape": name, "b_l_h_d": [b, L, h, d], "causal": causal,
+                 "valid_keys": (mask > 0).sum(dim=1).long().tolist(), "pairs": pairs,
+                 "fwd_ms": f_ms, "fwd_plain_ms": f_plain, "fwd_library_ms": f_lib,
+                 "fwd_bound_ms": f_bound, "fwd_bound_3xtf32_ms": f_bound_tc,
+                 "fwd_bound_by": "operations" if f_ops / PEAK_F32 >= f_bytes / HBM else "bytes",
+                 "bwd_ms": b_ms, "bwd_plain_ms": b_plain, "bwd_library_ms": b_lib,
+                 "bwd_library_backend": backend, "bwd_library_timing": method,
+                 "bwd_bound_ms": b_bound, "bwd_bound_3xtf32_ms": b_bound_tc,
+                 "bwd_bound_by": "operations" if b_ops / PEAK_F32 >= b_bytes / HBM else "bytes",
+                 "fwd_err_vs_f64": e_f, "fwd_plain_err_vs_f64": p_f,
+                 "bwd_err_vs_f64": e_b, "bwd_plain_err_vs_f64": p_b}
+        per.append(entry)
+        log(f"timing tts flash {name} ({b}, {L}, {h}, {d}) f32 causal={causal} (graph replays, "
+            f"{nvidia_smi()}): forward with LSE {f_ms:.5f} ms (plain {f_plain:.5f}, SDPA "
+            f"{f_lib:.5f}, bound {f_bound:.5f}, 3xTF32 bound {f_bound_tc:.5f}); backward "
+            f"{b_ms:.5f} ms (plain {b_plain:.5f}, SDPA {backend} {method} {b_lib:.5f}, bound "
+            f"{b_bound:.5f}, 3xTF32 bound {b_bound_tc:.5f})")
+        del qt, kt, vt, allowed
+    head = per[0]
+    common = dict(shape=f"valle_ar {tuple(head['b_l_h_d'])} f32 causal with the batch's key "
+                        "mask; per_shape: every recorded training shape",
+                  launches_per_step=per_step, per_shape=per,
+                  launches_are=f"the two runs of {TTS_STEPS} steps (VALL-E, MaskGCT) at the "
+                               "recipes' max_tokens, counted at the wrappers",
+                  timing="CUDA-graph replays on the resumed run's recorded layer-0 inputs")
+    rows = [_row("flash_attn_fwd_tts_training", "flash_attn_fwd.cu", 843,
+                 launches["flash_attn_fwd"], errs["fwd"], head["fwd_ms"], head["fwd_plain_ms"],
+                 head["fwd_bound_ms"], head["fwd_bound_by"], head["fwd_library_ms"],
+                 bound_3xtf32_ms=head["fwd_bound_3xtf32_ms"], **common),
+            _row("flash_attn_bwd_tts_training", "flash_attn_bwd.cu", 1044,
+                 launches["flash_attn_bwd"], errs["bwd"], head["bwd_ms"], head["bwd_plain_ms"],
+                 head["bwd_bound_ms"], head["bwd_bound_by"], head["bwd_library_ms"],
+                 bound_3xtf32_ms=head["bwd_bound_3xtf32_ms"], also_replaces="amphion_tpu/ops/pallas_kernels.py:1073", **common)]
+    return rows
+
+
+def tts_reference_phase(seed: int) -> None:
+    """One step of VALL-E and of MaskGCT (T2S + S2A) at full width (1024,
+    16 heads) and 2 layers, float32, on the card and on the CPU with the
+    same weights, batch and injected draws: phones with padding holes,
+    ragged codes, a dropped row in MaskGCT. The loss within 1e-4 relative,
+    every gradient within 1e-3 of its tensor's max|ref|."""
+    import copy
+
+    from amphion_tpu_torch.models.tts.maskgct.maskgct import (
+        MaskGCTS2A, MaskGCTT2S, S2AConfig, T2SConfig)
+    from amphion_tpu_torch.models.tts.valle.valle import VALLE, VALLEConfig
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    gen = torch.Generator().manual_seed(seed + 53)
+    rng = np.random.default_rng(seed + 53)
+    b, lp, t = 2, 14, 90
+    pm = (torch.arange(lp)[None] < torch.tensor([14, 9])[:, None]).float()
+    tm = (torch.arange(t)[None] < torch.tensor([90, 71])[:, None]).float()
+    phones = torch.from_numpy(rng.integers(1, 64, (b, lp))) * pm.long()
+    small = dict(hidden=1024, num_layers=2, num_heads=16)
+    codes = {q: torch.from_numpy(rng.integers(0, 1024, (b, q, t))) for q in (8, 12)}
+    mask_u = [torch.rand((b, t), generator=gen) for _ in range(2)]
+    feats = torch.randn((b, t, 384), generator=gen)
+    cases = {
+        "valle": (VALLE(VALLEConfig(num_phones=64, **small)),
+                  lambda m, dev: m.train_loss(phones.to(dev), pm.to(dev), codes[8].to(dev),
+                                              tm.to(dev), stage=torch.tensor([3, 6], device=dev),
+                                              plen=11)),
+        "maskgct_t2s": (MaskGCTT2S(T2SConfig(phone_vocab=64, **small)),
+                        lambda m, dev: m.compute_loss(
+                            codes[8][:, 0].to(dev) * 8, tm.to(dev), phones.to(dev), pm.to(dev),
+                            t=torch.tensor([0.3, 0.8], device=dev),
+                            mask_u=mask_u[0].to(dev), prompt_len=torch.tensor([20, 30], device=dev),
+                            use_cond=torch.tensor([True, False], device=dev))),
+        "maskgct_s2a": (MaskGCTS2A(S2AConfig(num_quantizers=12, **small), False, True),
+                        lambda m, dev: m.compute_loss(
+                            codes[12].to(dev), tm.to(dev), feats.to(dev),
+                            t=torch.tensor([0.6, 0.2], device=dev), mask_u=mask_u[1].to(dev),
+                            prompt_len=torch.tensor([10, 25], device=dev),
+                            use_cond=torch.tensor([True, True], device=dev),
+                            layer=torch.tensor([2, 9], device=dev))),
+    }
+    for name, (cpu, loss_fn) in cases.items():
+        init_like_flax(cpu, gen)
+        with torch.no_grad():  # a conditioning path for the adaptive norms, as trained ones have
+            for pname, p in cpu.named_parameters():
+                if "to_weight.weight" in pname:
+                    p.normal_(0.0, 0.02, generator=gen)
+        gpu = copy.deepcopy(cpu).to(DEV)
+        res = {}
+        for key, m in (("card", gpu), ("cpu", cpu)):
+            loss, _ = loss_fn(m, next(m.parameters()).device)
+            loss.backward()
+            res[key] = (loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()
+                                      if p.grad is not None})
+        rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        worst, worst_name = 0.0, ""
+        for k, ref in res["cpu"][1].items():
+            err = (res["card"][1][k] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            if err > worst:
+                worst, worst_name = err, k
+        check(f"reference: {name} step at full width, 2 layers, card vs CPU",
+              rel <= 1e-4 and worst <= 1e-3 and res["card"][1].keys() == res["cpu"][1].keys(),
+              f"loss {res['card'][0]:.6f} vs {res['cpu'][0]:.6f} (rel {rel:.2g}, tol 1e-4); "
+              f"worst gradient {worst_name} max|err|/max|ref| {worst:.2g} (tol 1e-3) over "
+              f"{len(res['cpu'][1])} tensors")
+        del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tts_training_phase(seed: int, kernels: dict, rows: list) -> dict:
+    """Codec-LM training as the recipes run it (egs/tts/{VALLE,MaskGCT}/
+    run.sh stages 1-3): a synthetic LibriTTS corpus through
+    `bins/tts/preprocess.py`, `bins/tts/train.py` at the recipes' widths
+    (VALL-E 1024 x 12 AR + NAR; T2S and S2A 1024 x 16, FFN 4096) and
+    ``max_tokens`` 16 000 in float32, a resume, and `bins/tts/inference.py`
+    from the trained checkpoints; then kernels 6 and 7 at the recorded
+    training shapes (`tts_flash_rows`), whose rows join ``rows``, and the
+    preprocessing's launches a file on the mel and Snake rows."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(key: str) -> None:
+        nonlocal t0
+        laps[key] = laps.get(key, 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    tts_reference_phase(seed)
+    lap("card_vs_cpu")
+    root = Path(tempfile.mkdtemp(prefix="tts_"))
+    out = {}
+    try:
+        clips = tts_corpus(root, seed)
+        lap("corpus")
+        for name, (_, _, per_step) in TTS_MODELS.items():
+            flags = tts_codecs(root, name, tts_config(root, name, "pre"), seed)
+            pre = tts_preprocess(root, name, tts_config(root, name, "pre"), flags, kernels)
+            lap(f"{name}_preprocess")
+            # layer 0 of each model (AR then NAR, T2S then S2A) in the first step
+            keep = functools.partial(lambda layers, i, a: i in (0, layers), per_step // 2)
+            run = tts_train(root, name, kernels, keep)
+            lap(f"{name}_train_and_resume")
+            cli = tts_cli(root, name, flags, clips[0], clips[1][1])
+            shutil.rmtree(root / "ckpts" / name, ignore_errors=True)
+            lap(f"{name}_cli")
+            out[name] = {"preprocess": pre, **run, "cli": cli}
+        launches = {k: out["valle"]["launches"][k] + out["maskgct"]["launches"][k]
+                    for k in ("flash_attn_fwd", "flash_attn_bwd")}
+        per_step = {n: out[n]["perf"]["launches_per_step"]["flash_attn_fwd"] for n in TTS_MODELS}
+        rows += tts_flash_rows(tts_flash_shapes(out["valle"], out["maskgct"]), launches,
+                               per_step)
+        lap("flash_checks_and_timing")
+        for r in rows:
+            kernel = {"mel_spectrogram": "mel", "snake": "snake"}.get(r["name"])
+            if kernel:
+                r["tts_preprocess_launches_per_file"] = {
+                    n: out[n]["preprocess"]["per_file"][kernel] for n in TTS_MODELS}
+                r["tts_preprocess_max_abs_err"] = {
+                    n: out[n]["preprocess"]["max_abs_err"][kernel] for n in TTS_MODELS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("tts training laps (s): " + json.dumps(laps))
+    log(f"tts training ({nvidia_smi()}): " + json.dumps(
+        {n: {"perf": o["perf"], "preprocess": o["preprocess"], "cli": o["cli"]}
+         for n, o in out.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new", type=int, default=384,
+    ap.add_argument("--max-new", type=int, default=256,
                     help="AR decode steps of the voice runs (bins/serve.py's default is "
                          "768; cut so that the whole run stays well inside its time)")
     args = ap.parse_args()
@@ -5119,6 +5727,8 @@ def main() -> int:
     valle_reference_phase(args.seed)
     rows += valle_phase(args.seed, kernels, VALLE_MAX_NEW)["rows"]
     lap("valle")
+    tts_training_phase(args.seed, kernels, rows)
+    lap("tts training")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -1293,3 +1293,88 @@ def test_hifigan_gan_step_launches_mel_kernel_three_times(cuda):
     torch.cuda.synchronize()
     assert [k.launches - c for k, c in zip((MEL, AA_SNAKE, SNAKE), counts)] == [3, 0, 0]
     assert all(torch.isfinite(v).item() for v in m.values())
+
+
+# -- codec-LM training (VALL-E, MaskGCT) ----------------------------------------------
+
+
+def _valle_train_inputs(device, b=4, lp=40, t=300, q=8, seed=9):
+    """A VALL-E training batch: padded phones leave holes between a row's
+    real phones and its codes in ``[phones; codes]``; ragged codes."""
+    g = torch.Generator().manual_seed(seed)
+    ph_len = torch.tensor([lp - 11 * i for i in range(b)])
+    tok_len = torch.tensor([t - 37 * i for i in range(b)])
+    pm = (torch.arange(lp)[None] < ph_len[:, None]).float()
+    tm = (torch.arange(t)[None] < tok_len[:, None]).float()
+    phones = torch.randint(1, 64, (b, lp), generator=g) * pm.long()
+    codes = torch.randint(0, 1024, (b, q, t), generator=g)
+    return [x.to(device) for x in (phones, pm, codes, tm)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_bwd_at_valle_training_shape(cuda, causal):
+    """Kernels 6 and 7 in float32 at a VALL-E training shape, (4, 340, 16,
+    64) over ``[phones; codes]`` with the AR's key mask (causal) or the
+    NAR's: padded phones sit between real phones and codes, so rows hold
+    masked keys before real ones. Forward within 1e-4 of the plain version,
+    dq/dk/dv within 1e-4 of max|ref|, each relaunched bit for bit."""
+    from amphion_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref)
+
+    _, pm, _, tm = _valle_train_inputs(cuda)
+    mask = torch.cat([pm, tm], dim=1)
+    real = mask > 0
+    assert ((~real[:, :-1]) & real[:, 1:]).any(dim=1).sum() == 3  # the holes
+    b, L, h, d = mask.shape[0], mask.shape[1], 16, 64
+    g = torch.Generator(cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((b, L, h, d), generator=g, device=cuda) for _ in range(4))
+    out, lse = flash_attention(q, k, v, mask, causal, return_lse=True)
+    ref, ref_lse = attention_ref(q, k, v, mask, causal, return_lse=True)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    grads = flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    again = flash_attention_bwd(q, k, v, mask, out, lse, do, causal)
+    for got, r in zip(grads, flash_attention_bwd_ref(q, k, v, mask, out, lse, do, causal)):
+        assert (got - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert torch.equal(out, flash_attention(q, k, v, mask, causal))
+
+
+def test_valle_train_step_card_matches_cpu(cuda):
+    """One VALL-E training step's loss and gradients at full width (1024,
+    16 heads, 8 x 1024 codes) and 2 layers, float32, on the card against
+    the CPU with the same weights, batch and draws: the losses within 1e-4
+    relative, every gradient within 1e-3 of its tensor's max|ref|; kernels
+    6 and 7 once a layer of each stage."""
+    import copy
+
+    from amphion_tpu_torch.models.tts.valle.valle import VALLE, VALLEConfig
+    from amphion_tpu_torch.ops.kernels.flash_attention import FLASH_BWD
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    g = torch.Generator().manual_seed(4)
+    cpu = init_like_flax(VALLE(VALLEConfig(num_phones=64, num_layers=2)), g)
+    with torch.no_grad():  # the adaptive norms off their identity start
+        for name, p in cpu.named_parameters():
+            if "to_weight.weight" in name:
+                p.normal_(0.0, 0.02, generator=g)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    res = {}
+    for model in (cpu, gpu):
+        dev = next(model.parameters()).device
+        counts = FLASH.launches, FLASH_BWD.launches
+        loss, aux = model.train_loss(*_valle_train_inputs(dev),
+                                     stage=torch.tensor([1, 3, 5, 7], device=dev), plen=40)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (FLASH.launches - counts[0], FLASH_BWD.launches - counts[1]) == (4, 4)
+        res[dev.type] = ({k: v.item() for k, v in aux.items()},
+                         {n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None})
+    for k, ref in res["cpu"][0].items():
+        assert abs(res["cuda"][0][k] - ref) <= 1e-4 * abs(ref), k
+    assert res["cuda"][1].keys() == res["cpu"][1].keys()
+    for name, ref in res["cpu"][1].items():
+        err = (res["cuda"][1][name] - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item(), name
