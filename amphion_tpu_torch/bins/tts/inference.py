@@ -1,13 +1,34 @@
-"""TTS inference CLI (port of `bins/tts/inference.py`): zero-shot VALL-E
-and MaskGCT, one request, text and a prompt recording → a wav file.
+"""TTS inference CLI (port of `bins/tts/inference.py`): VITS and
+FastSpeech2 from text, zero-shot VALL-E and MaskGCT from text and a prompt
+recording, one request → a wav file.
 
     python -m amphion_tpu_torch.bins.tts.inference --config <exp config> \
-        --exp_name <exp> --prompt_audio prompt.wav --prompt_text "..." \
-        --text "..." --output_path out.wav [--codec_ckpt DIR] \
+        --exp_name <exp> --text "..." --output_path out.wav \
+        [--speaker NAME] [--noise_scale 0.667] [--length_scale 1.0] \
+        [--max_frames 1000] [--vocoder_ckpt DIR [--vocoder_config FILE]] \
+        [--prompt_audio prompt.wav --prompt_text "..."] [--codec_ckpt DIR] \
         [--semantic_ckpt DIR] [--weights_dir DIR] [--max_new 512] \
         [--top_k 50] [--device cuda]
 
 ``model_type`` in the config picks the mode:
+
+- ``VITS``, and any type no other mode takes, as in JAX (`vits_inference`):
+  the g2p ids of ``text`` in the dataset's ``symbols.dict``, blanks
+  interspersed where ``preprocess.add_blank`` (default on), the speaker of
+  ``spk2id.json`` (beside the checkpoints) named by ``--speaker`` (the
+  first where unknown) when there are several, then `VITS.infer` with
+  ``--noise_scale``, ``--length_scale``, the duration noise scale 0.8 and
+  ``--max_frames``, its draws from a generator seeded 0; the waveform is
+  cut to the frame mask. Weights: the ``"g"`` state of the latest
+  checkpoint under ``log_dir/<exp_name>/checkpoint``.
+- ``FastSpeech2`` (`fastspeech2_inference`): the g2p ids of ``text`` in
+  the trainer's ``<exp>/symbols.dict``, predicted durations scaled by
+  ``--length_scale``, pitch and energy, the Postnet mel cut to the frame
+  mask, then `_vocode`: the GAN vocoder of ``--vocoder_ckpt``
+  (`runtime/vocoder_trainer.load_vocoder`, kernel-free HiFi-GAN or any
+  generator it builds) or else Griffin-Lim (`ops/dsp.mel_to_audio`, 32
+  iterations, its initial phase drawn from a generator seeded 0), which
+  gives (frames − 1) · hop samples where a vocoder gives frames · hop.
 
 - ``VALLE`` (`valle_inference`): g2p of ``prompt_text + " " + text``, the
   hop-truncated prompt's codec codes (`utils/tokenizer.AudioTokenizer`),
@@ -42,10 +63,11 @@ and MaskGCT, one request, text and a prompt recording → a wav file.
   `egs/tts/MaskGCT/exp_config.json`): log-mel (kernel 3 on the card) of
   the hop-truncated prompt.
 
-``--testing_set`` runs every utterance of a processed split, as in JAX.
-The other model types (VITS, FastSpeech2, JETS, NaturalSpeech2) and their
-options are not ported; their configs raise. The port adds ``--device``
-(default ``cuda``). Orbax checkpoints of the JAX package raise.
+``--testing_set`` runs every utterance of a processed split (its text and
+speaker), as in JAX. Jets and NaturalSpeech2 (ROADMAP A6.4) and
+``--num_steps`` are not ported; their configs raise. The port adds
+``--device`` (default ``cuda``). Orbax checkpoints of the JAX package
+raise.
 """
 
 from __future__ import annotations
@@ -62,6 +84,7 @@ from amphion_tpu_torch.data.audio_io import load_wav, save_wav
 
 from amphion_tpu_torch.models.codec.amphion_codec import AmphionCodec, CodecConfig
 from amphion_tpu_torch.models.codec.repcodec import RepCodec, RepCodecConfig
+from amphion_tpu_torch.models.tts.fastspeech2.fs2 import FastSpeech2
 from amphion_tpu_torch.models.tts.maskgct.maskgct import S2AConfig, T2SConfig
 from amphion_tpu_torch.models.tts.valle.valle import (
     VALLE,
@@ -69,10 +92,14 @@ from amphion_tpu_torch.models.tts.valle.valle import (
     ar_generate,
     prepare_for_decode,
 )
+from amphion_tpu_torch.models.tts.vits.vits import VITS
+from amphion_tpu_torch.ops.dsp import mel_to_audio
 from amphion_tpu_torch.ops.mel import MelConfig, mel_spectrogram
 from amphion_tpu_torch.pipelines.maskgct_pipeline import MaskGCTPipeline
 from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
-from amphion_tpu_torch.text.g2p import G2PModule
+from amphion_tpu_torch.runtime.tts_trainer import fs2_config, vits_config
+from amphion_tpu_torch.runtime.vocoder_trainer import load_vocoder
+from amphion_tpu_torch.text.g2p import G2PModule, intersperse
 from amphion_tpu_torch.text.symbol_table import SymbolTable
 from amphion_tpu_torch.utils.config import load_config
 from amphion_tpu_torch.utils.convert import init_like_flax
@@ -258,7 +285,85 @@ def maskgct_zeroshot_inference(args, cfg: dict, logger) -> None:
     logger.info(f"wrote {args.output_path} ({len(wav) / sr:.2f}s)")
 
 
-MODES = {"VALLE": valle_inference, "MaskGCT": maskgct_zeroshot_inference}
+def vits_inference(args, cfg: dict, logger) -> dict:
+    """VITS: text → waveform through `VITS.infer` → {frames of the frame
+    mask, samples written}."""
+    device = resolve_device(args.device)
+    p = cfg["preprocess"]
+    exp_dir = Path(cfg.get("log_dir", "ckpts")) / args.exp_name
+    spk2id = json.loads((exp_dir / "spk2id.json").read_text())
+    symbols, g2p = _symbols(cfg)
+    ids = g2p.to_ids(args.text, symbols)
+    if p.get("add_blank", True):
+        ids = intersperse(ids, 0)
+    state, epoch, step = CheckpointManager(exp_dir / "checkpoint").restore_raw(
+        map_location="cpu")
+    model = VITS(vits_config(cfg, len(symbols), len(spk2id)))
+    model.load_state_dict(state["g"]["model"])
+    model = model.to(device).eval().requires_grad_(False)
+    logger.info(f"restored from epoch {epoch} step {step}")
+    sid = None
+    if len(spk2id) > 1:
+        sid = torch.tensor([spk2id.get(getattr(args, "speaker", ""), 0)], device=device)
+    phones = torch.tensor(ids, device=device)[None]
+    with torch.inference_mode():
+        wav, fmask, _ = model.infer(phones, torch.ones_like(phones, dtype=torch.float32), sid,
+                                    args.noise_scale, args.length_scale, 0.8, args.max_frames,
+                                    generator=torch.Generator(device).manual_seed(0))
+    frames = int(fmask.sum())
+    n = frames * model.cfg.decoder.hop_size
+    save_wav(args.output_path, wav[0, :n].float().cpu().numpy(), p["sample_rate"])
+    logger.info(f"wrote {args.output_path} ({n / p['sample_rate']:.2f}s)")
+    return {"frames": frames, "samples": n}
+
+
+def _vocode(mel: torch.Tensor, args, cfg: dict, logger) -> torch.Tensor:
+    """mel (B, N, n_mel) → waveform (B, T): the GAN vocoder of
+    ``--vocoder_ckpt``, else Griffin-Lim."""
+    p = cfg["preprocess"]
+    if getattr(args, "vocoder_ckpt", ""):
+        voc_fn, _ = load_vocoder(args.vocoder_ckpt, p["n_mel"],
+                                 getattr(args, "vocoder_config", ""), fallback_cfg=cfg,
+                                 device=mel.device)
+        return voc_fn(mel)
+    logger.info("no --vocoder_ckpt: Griffin-Lim reconstruction")
+    return mel_to_audio(mel.transpose(1, 2), MelConfig.from_preprocess_cfg(p))
+
+
+def fastspeech2_inference(args, cfg: dict, logger) -> dict:
+    """Two-stage FastSpeech2: phones → predicted durations, pitch and energy
+    → mel → vocoder (or Griffin-Lim) → {frames of the frame mask, samples
+    written}. The phone table is the one the trainer grew from the
+    TextGrids."""
+    device = resolve_device(args.device)
+    p = cfg["preprocess"]
+    exp_dir = Path(cfg.get("log_dir", "ckpts")) / args.exp_name
+    symbols = SymbolTable.from_file(exp_dir / "symbols.dict")
+    g2p = G2PModule(p.get("g2p_backend", "char"), p.get("lexicon_path") or None)
+    ids = g2p.to_ids(args.text, symbols)
+    if not ids:
+        raise ValueError("no phones mapped into the trained symbol table")
+    state, epoch, step = _model_state(exp_dir / "checkpoint")
+    logger.info(f"FastSpeech2 restored from epoch {epoch} step {step}")
+    n_speakers = state["spk.weight"].shape[0] if "spk.weight" in state else 0
+    model = FastSpeech2(fs2_config(cfg, len(symbols), n_speakers))
+    model.load_state_dict(state)
+    model = model.to(device).eval().requires_grad_(False)
+    phones = torch.tensor(ids, device=device)[None]
+    sid = torch.zeros(1, dtype=torch.int64, device=device) if n_speakers else None
+    with torch.inference_mode():
+        out = model(phones, torch.ones_like(phones, dtype=torch.float32), sid=sid,
+                    d_control=args.length_scale)
+        n = int(out["frame_mask"].sum())
+        wav = _vocode(out["mel_postnet"][:, :n], args, cfg, logger)
+    save_wav(args.output_path, wav[0].float().cpu().numpy(), p["sample_rate"])
+    logger.info(f"wrote {args.output_path} ({n * p['hop_size'] / p['sample_rate']:.2f}s)")
+    return {"frames": n, "samples": wav.shape[-1]}
+
+
+MODES = {"VALLE": valle_inference, "MaskGCT": maskgct_zeroshot_inference,
+         "FastSpeech2": fastspeech2_inference, "VITS": vits_inference}
+NOT_PORTED = {"Jets": "A6.4", "NaturalSpeech2": "A6.4"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -266,32 +371,42 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--config", required=True)
     ap.add_argument("--exp_name", default="exp")
     ap.add_argument("--text", default="")
+    ap.add_argument("--speaker", default="")
     ap.add_argument("--output_path", default="")
     ap.add_argument("--testing_set", default="",
                     help="processed split name (e.g. test, golden_test)")
     ap.add_argument("--output_dir", default="")
+    ap.add_argument("--noise_scale", type=float, default=0.667)
+    ap.add_argument("--length_scale", type=float, default=1.0)
+    ap.add_argument("--max_frames", type=int, default=1000)
     ap.add_argument("--prompt_audio", default="")
     ap.add_argument("--prompt_text", default="")
     ap.add_argument("--codec_ckpt", default="")
     ap.add_argument("--semantic_ckpt", default="")
     ap.add_argument("--weights_dir", default="",
                     help="manifest of per-module port checkpoints (MaskGCT)")
+    ap.add_argument("--vocoder_ckpt", default="",
+                    help="GAN vocoder checkpoint (FastSpeech2; Griffin-Lim if empty)")
+    ap.add_argument("--vocoder_config", default="",
+                    help="vocoder exp config (else exp_config.json next to --vocoder_ckpt)")
     ap.add_argument("--max_new", type=int, default=512, help="VALL-E AR decode budget")
     ap.add_argument("--top_k", type=int, default=50)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     return ap.parse_args(argv)
 
 
-def _run_single(args, cfg: dict, logger) -> None:
-    mode = MODES.get(cfg.get("model_type"))
-    if mode is None:
+def _run_single(args, cfg: dict, logger):
+    model_type = cfg.get("model_type")
+    if model_type in NOT_PORTED:
         raise NotImplementedError(
-            f"model_type {cfg.get('model_type')!r} is not ported (ROADMAP A6); the port's "
-            f"TTS CLI runs {sorted(MODES)}")
-    return mode(args, cfg, logger)
+            f"model_type {model_type!r} is not ported (ROADMAP A6: {NOT_PORTED[model_type]}); "
+            f"the port's TTS CLI runs {sorted(MODES)}")
+    return MODES.get(model_type, vits_inference)(args, cfg, logger)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run the CLI; one request returns what its mode returns (VITS and
+    FastSpeech2: the frames and samples written)."""
     args = parse_args(argv)
     strict_float32()
     cfg = load_config(args.config)
@@ -310,13 +425,13 @@ def main(argv=None) -> None:
         logger.info(f"batch inference over {len(utts)} utterances ({args.testing_set})")
         for u in utts:
             sub = copy.copy(args)
-            sub.testing_set, sub.text = "", u.text or ""
+            sub.testing_set, sub.text, sub.speaker = "", u.text or "", u.speaker or ""
             sub.output_path = str(out_dir / f"{u.uid}.wav")
             _run_single(sub, cfg, logger)
         return
     if not (args.text and args.output_path):
         raise SystemExit("need --text and --output_path")
-    _run_single(args, cfg, logger)
+    return _run_single(args, cfg, logger)
 
 
 if __name__ == "__main__":

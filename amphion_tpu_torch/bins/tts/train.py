@@ -5,12 +5,13 @@ keyed on ``cfg["model_type"]``.
         --exp_name valle [--resume [--resume_type resume|finetune] \\
         [--resume_from_ckpt_path DIR]] [--device cpu]
 
-``VALLE`` and ``MaskGCT`` train with `runtime/tts_trainer` on what
-`bins/tts/preprocess.py` wrote (phones, codes and, for MaskGCT, semantic
-tokens and latents); their checkpoints under
-``log_dir/<exp_name>/checkpoint`` are what `bins/tts/inference.py` reads.
-VITS, FastSpeech2, Jets and NaturalSpeech2 (ROADMAP A6.4), Metis and
-DualCodecTTS (ROADMAP A6.6) are not ported and raise. ``--test`` and
+``VITS``, ``VALLE``, ``FastSpeech2`` and ``MaskGCT`` train with
+`runtime/tts_trainer` on what `bins/tts/preprocess.py` wrote (phones; for
+VALL-E and MaskGCT codes, for MaskGCT semantic tokens and latents) and,
+for FastSpeech2, the MFA TextGrids under ``<processed>/<ds>/textgrids``;
+their checkpoints under ``log_dir/<exp_name>/checkpoint`` are what
+`bins/tts/inference.py` reads. Jets and NaturalSpeech2 (ROADMAP A6.4),
+Metis and DualCodecTTS (ROADMAP A6.6) are not ported and raise. ``--test`` and
 ``--log_level`` are accepted and unused, as in JAX. Float32 is strict on
 the card (`utils/device.strict_float32`). The port adds ``--device``
 (default ``cuda``; raises without a card).
@@ -24,8 +25,8 @@ from amphion_tpu_torch.runtime.tts_trainer import TRAINERS
 from amphion_tpu_torch.utils.config import load_config
 from amphion_tpu_torch.utils.device import strict_float32
 
-NOT_PORTED = {"VITS": "A6.4", "FastSpeech2": "A6.4", "Jets": "A6.4",
-              "NaturalSpeech2": "A6.4", "Metis": "A6.6", "DualCodecTTS": "A6.6"}
+NOT_PORTED = {"Jets": "A6.4", "NaturalSpeech2": "A6.4", "Metis": "A6.6",
+              "DualCodecTTS": "A6.6"}
 
 
 def build_trainer(args, cfg: dict):

@@ -2,7 +2,9 @@
 and ``statistics.json`` (the port's copy of part of
 `amphion_tpu/data/preprocessors/processor.py`).
 
-Adapters are registered by dataset name. Ported: ``libritts`` (the TTS
+Adapters are registered by dataset name. Ported: ``ljspeech`` (the VITS
+and FastSpeech2 recipes' corpus: ``metadata.csv`` of ``id|raw|normalized``
+rows beside ``wavs/<id>.wav``, one speaker), ``libritts`` (the codec-LM
 recipes' corpus: ``<split>/<spk>/<chapter>/<uid>.wav`` beside
 ``<uid>.normalized.txt``) and ``audiofolder`` (any folder of wavs with
 optional ``.txt``/``.lab`` transcripts). The test split is drawn as in JAX,
@@ -25,7 +27,7 @@ SUPPORTED_DATASETS: dict[str, Callable] = {}
 
 # registered by the JAX package, not ported
 NOT_PORTED = (
-    "ljspeech", "vctk", "librilight", "hifitts", "opencpop", "m4singer", "opensinger",
+    "vctk", "librilight", "hifitts", "opencpop", "m4singer", "opensinger",
     "popbutfy", "popcs", "kising", "csd", "opera", "nus48e", "svcc", "pjs", "vocalist",
     "lijian", "cdmusiceval", "ljspeech_vocoder", "svcceval", "vctkfewsinger", "vctksample",
     "customsvcdataset", "coco", "cocoeval",
@@ -79,6 +81,26 @@ def _finalize(name: str, utts: list[Utterance], output_dir: Path,
     with open(out / "statistics.json", "w") as f:
         json.dump(stats, f, indent=2)
     return train, test
+
+
+@register("ljspeech")
+def ljspeech(input_dir: str, output_dir: str, **kw):
+    """LJSpeech: metadata.csv with 'id|raw|normalized' rows (the normalized
+    text where present), wavs/<id>.wav; speaker "LJSpeech"."""
+    root = Path(input_dir)
+    utts = []
+    with open(root / "metadata.csv", encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("|")
+            if len(parts) < 2:
+                continue
+            uid = parts[0]
+            text = parts[2] if len(parts) > 2 and parts[2] else parts[1]
+            wav = root / "wavs" / f"{uid}.wav"
+            if wav.is_file():
+                utts.append(Utterance("ljspeech", uid, str(wav), _duration(wav),
+                                      speaker="LJSpeech", text=text, language="en"))
+    return _finalize("ljspeech", utts, Path(output_dir), **kw)
 
 
 @register("libritts")

@@ -21,6 +21,9 @@ codec's ``(k−1−⌈r/2⌉, k−1−⌊r/2⌋)`` with k = 2r is asymmetric for
 stride and an explicit ``(left, right)`` padding (the codec's strided
 encoder convolutions, the MSD's grouped ones).
 
+`WNLinear` is Flax ``WeightNorm(Dense(out))`` (the VITS WaveNet's global
+conditioning, ``cond``), its kernel normalised over the inputs per output.
+
 `WNConv2d` is the GAN discriminators' 2-D convolution (MPD, MRD, MS-STFT,
 MS-SB-CQT), in torch's layout (B, C, H, W) in and out, with a symmetric
 padding per axis and a dilation.
@@ -74,6 +77,21 @@ class WNConv1d(nn.Module):
         xs = F.pad(x.transpose(1, 2), self.padding)
         return F.conv1d(xs, w, self.bias, stride=self.stride, dilation=self.dilation,
                         groups=self.groups).transpose(1, 2)
+
+
+class WNLinear(nn.Module):
+    """Flax ``WeightNorm(Dense(out))``: ``weight`` (out, in) is the
+    unnormalised kernel (torch's layout), ``scale`` (out,)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.scale = nn.Parameter(torch.ones(out_features))
+        nn.init.normal_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _normalized(self.weight, self.scale, (1,), 0), self.bias)
 
 
 class WNConv2d(nn.Module):

@@ -7,7 +7,9 @@ config's dataset-level mean/var. `mel_spectrogram` runs the fused CUDA
 kernel (`ops/kernels/csrc/mel.cu`) on a CUDA tensor, through `LogMelFn`
 when autograd needs the signal's gradient (a GAN's mel loss);
 `mel_spectrogram_ref` is the plain version, equal to the JAX
-``mel_spectrogram_xla``.
+``mel_spectrogram_xla``. `linear_spectrogram` (VITS's posterior input) is
+plain PyTorch on either device, as JAX computes it outside any Pallas
+kernel: the windowed DFT of `ops/stft` as a strided float32 convolution.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from amphion_tpu_torch.ops.kernels.mel import LogMelFn, log_mel, log_mel_ref
+from amphion_tpu_torch.ops.stft import _dft_kernel, _reflect_pad
 
 
 @dataclass(frozen=True)
@@ -139,3 +143,16 @@ def mel_spectrogram_ref(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     mel = log_mel_ref(y, _fbank(cfg, y.device), cfg.n_fft, cfg.hop_size,
                       cfg.win_size, cfg.clip_val)
     return _standardize(mel, cfg)
+
+
+def linear_spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """Linear magnitude spectrogram of (B, T) or (T,) waveforms → (B,
+    n_fft//2 + 1, T // hop): reflect padding of ``(n_fft − hop)/2``, the
+    windowed DFT as a convolution of stride hop, ``sqrt(re² + im² + 1e-9)``.
+    Float32 on the card needs `utils/device.strict_float32` (no TF32)."""
+    y = _reflect_pad(_as_batch(y), (cfg.n_fft - cfg.hop_size) // 2)
+    kernel = torch.from_numpy(_dft_kernel(cfg.n_fft, cfg.win_size)).to(y.device)
+    out = F.conv1d(y[:, None, :], kernel[:, None, :], stride=cfg.hop_size)
+    f = cfg.n_fft // 2 + 1
+    re, im = out[:, :f], out[:, f:]
+    return torch.sqrt(re * re + im * im + 1e-9)

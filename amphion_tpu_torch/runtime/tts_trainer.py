@@ -1,9 +1,38 @@
-"""Codec-LM TTS trainers (port of `VALLETrainer` and `MaskGCTTrainer` of
+"""TTS trainers (port of `VITSTrainer`, `VALLETrainer`,
+`FastSpeech2Trainer` and `MaskGCTTrainer` of
 `amphion_tpu/runtime/tts_trainer.py`): one eager PyTorch step a batch
-(forward, backward, optax's global-norm clip, AdamW) over what
-`bins/tts/preprocess.py` wrote.
+over what `bins/tts/preprocess.py` wrote.
 
-Both read ``<processed_dir>/<dataset>/train.json``, keep the utterances
+VITS and FastSpeech2 (the LJSpeech recipes) batch as JAX does: each
+epoch's order is ``numpy.random.default_rng(epoch)``'s permutation of the
+utterances, in full batches of ``train.batch_size``, a resume skipping the
+batches its checkpoint had consumed. Their models are drawn from
+``train.seed`` with the Flax initializers (`utils/convert.init_like_flax`)
+and applied with dropout off, as JAX's trainers apply theirs
+(``deterministic=True``).
+
+- `VITSTrainer`: phones from ``<processed>/<ds>/phones/<uid>.json``
+  (blanks interspersed where ``preprocess.add_blank``, default on) cut to
+  ``train.max_phones``, audio cut to ``train.max_frames`` whole hops and
+  its linear spectrogram made on the device; the step of
+  `models/tts/vits/vits_trainer.make_vits_train_step` (G: VITS, D: MPD +
+  MSD, ``model.discriminators``), each half with its decayed AdamW, the
+  step's draws from the G state's generator. ``spk2id.json`` is written
+  beside the checkpoints; the checkpoint holds both states (``"g"``,
+  ``"d"``), of which `bins/tts/inference.py` reads ``g``.
+- `FastSpeech2Trainer`: phones and durations from MFA TextGrids at
+  ``<processed>/<ds>/textgrids/<uid>.TextGrid``
+  (`data/processors/duration.textgrid_to_durations`), its symbol table
+  grown from their phones and written to ``<exp>/symbols.dict``; each row
+  cut to the phones that end within ``train.max_frames``, its audio to
+  their frames in a zero batch of ``max_frames · hop`` samples; the log-mel
+  (kernel 3 on the card), YIN F0 (`ops/f0`) and energy made on the device,
+  log-F0 and energy standardised over the batch (JAX's rule, not dataset
+  statistics); `fastspeech2_loss` and one optax ``adamw(lr)`` update at its
+  defaults.
+
+VALL-E and MaskGCT (the codec-LM recipes) read
+``<processed_dir>/<dataset>/train.json``, keep the utterances
 whose feature files all exist (phones from ``preprocess.extract_phone``,
 which `config/base.json` sets off, so a recipe must set it on; codes from
 ``--extract_codes``; for MaskGCT semantic tokens and latents from
@@ -29,11 +58,11 @@ state's generator (seeded ``seed + 2``), which checkpoints with it.
   checkpoint's ``"model"`` is one state dict of keys ``t2s.*`` and
   ``s2a.*``, what `bins/tts/inference.build_maskgct_pipeline` loads.
 
-Each loss's backward runs before the next loss's forward (the AR before
-the NAR, T2S before S2A): the gradients are their sum, as JAX's one
-backward of the summed loss gives, and only one model's activations are
-held at a time. Attention runs kernels 6 and 7 in every layer of every
-step. The port adds ``--device`` (default ``cuda``) and reads
+In the codec-LM trainers each loss's backward runs before the next loss's
+forward (the AR before the NAR, T2S before S2A): the gradients are their
+sum, as JAX's one backward of the summed loss gives, and only one model's
+activations are held at a time. Attention runs kernels 6 and 7 in every
+layer of every step. The port adds ``--device`` (default ``cuda``) and reads
 ``train.metrics_path`` (a JSONL file of per-step metrics and wall times).
 """
 
@@ -46,9 +75,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from amphion_tpu_torch.data.audio_io import load_wav
 from amphion_tpu_torch.data.dataset import Prefetcher, pad_batch
 from amphion_tpu_torch.data.metadata import load_metadata
+from amphion_tpu_torch.data.processors.duration import textgrid_to_durations
 from amphion_tpu_torch.data.samplers import LengthBucketSampler
+from amphion_tpu_torch.models.tts.fastspeech2.fs2 import (
+    FastSpeech2,
+    FastSpeech2Config,
+    fastspeech2_loss,
+)
 from amphion_tpu_torch.models.tts.maskgct.maskgct import (
     MaskGCTS2A,
     MaskGCTT2S,
@@ -56,10 +92,22 @@ from amphion_tpu_torch.models.tts.maskgct.maskgct import (
     T2SConfig,
 )
 from amphion_tpu_torch.models.tts.valle.valle import VALLE, VALLEConfig
+from amphion_tpu_torch.models.tts.vits.vits import VITS, VITSConfig
+from amphion_tpu_torch.models.tts.vits.vits_trainer import (
+    create_vits_states,
+    make_vits_train_step,
+)
+from amphion_tpu_torch.models.vocoders.gan_trainer import GANTrainConfig
+from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig
+from amphion_tpu_torch.ops.energy import energy_from_log_mel
+from amphion_tpu_torch.ops.f0 import F0Config, yin_f0
+from amphion_tpu_torch.ops.mel import MelConfig, linear_spectrogram, mel_spectrogram
 from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
 from amphion_tpu_torch.runtime.loop import LoopConfig, TrainLoop
 from amphion_tpu_torch.runtime.optimizers import ClipAdamW, maybe_accumulate
-from amphion_tpu_torch.runtime.train_state import TrainState
+from amphion_tpu_torch.runtime.train_state import TrainState, TrainStates
+from amphion_tpu_torch.runtime.vocoder_trainer import build_discriminator
+from amphion_tpu_torch.text.g2p import intersperse
 from amphion_tpu_torch.text.symbol_table import SymbolTable
 from amphion_tpu_torch.utils.convert import init_like_flax
 from amphion_tpu_torch.utils.device import resolve_device, strict_float32
@@ -67,6 +115,25 @@ from amphion_tpu_torch.utils.logging import get_logger, model_summary
 
 PHONES_HINT = ("set preprocess.extract_phone true (config/base.json sets it false) and run "
                "bins/tts/preprocess.py")
+
+
+def _loop(cfg: dict, args, train_step, states, data_fn, logger) -> TrainLoop:
+    """The train loop of ``cfg["train"]`` with checkpoints under
+    ``log_dir/<exp_name>/checkpoint``, resumed where ``args.resume``."""
+    t = cfg["train"]
+    ckpt = CheckpointManager(Path(cfg.get("log_dir", "ckpts")) / args.exp_name / "checkpoint",
+                             list(t.get("save_checkpoint_stride", [1])),
+                             list(t.get("keep_last", [-1])))
+    loop = TrainLoop(
+        LoopConfig(max_epoch=t.get("max_epoch", -1), max_steps=t.get("max_steps", -1),
+                   log_interval=t.get("log_interval", 100),
+                   save_checkpoints_steps=t.get("save_checkpoints_steps", 0),
+                   metrics_path=t.get("metrics_path", "")),
+        train_step, states, data_fn, ckpt=ckpt, logger=logger)
+    if getattr(args, "resume", False):
+        loop.resume(getattr(args, "resume_from_ckpt_path", None) or None,
+                    getattr(args, "resume_type", "resume"))
+    return loop
 
 
 class _CodecLMTrainer:
@@ -148,19 +215,7 @@ class _CodecLMTrainer:
         return state, {"loss": total, **metrics}
 
     def _setup_loop(self, state: TrainState) -> None:
-        t = self.cfg["train"]
-        ckpt_dir = Path(self.cfg.get("log_dir", "ckpts")) / self.args.exp_name / "checkpoint"
-        self.ckpt = CheckpointManager(ckpt_dir, list(t.get("save_checkpoint_stride", [1])),
-                                      list(t.get("keep_last", [-1])))
-        self.loop = TrainLoop(
-            LoopConfig(max_epoch=t.get("max_epoch", -1), max_steps=t.get("max_steps", -1),
-                       log_interval=t.get("log_interval", 100),
-                       save_checkpoints_steps=t.get("save_checkpoints_steps", 0),
-                       metrics_path=t.get("metrics_path", "")),
-            self.step, state, self._data, ckpt=self.ckpt, logger=self.logger)
-        if getattr(self.args, "resume", False):
-            self.loop.resume(getattr(self.args, "resume_from_ckpt_path", None) or None,
-                             getattr(self.args, "resume_type", "resume"))
+        self.loop = _loop(self.cfg, self.args, self.step, state, self._data, self.logger)
 
     def _data(self, skip: int = 0):
         """This epoch's batches from the ``skip``-th on, made ahead on a
@@ -304,4 +359,236 @@ class MaskGCTTrainer(_CodecLMTrainer):
                                state.generator, **draws.get("s2a", {}))
 
 
-TRAINERS = {"VALLE": VALLETrainer, "MaskGCT": MaskGCTTrainer}
+class _EpochTrainer:
+    """VITS's and FastSpeech2's batching: the epoch's permutation in full
+    batches, made ahead on a background thread without gradients."""
+
+    def _epoch_utts(self, epoch: int) -> list[list]:
+        """Epoch ``epoch``'s batches of utterances, in JAX's order."""
+        order = np.random.default_rng(epoch).permutation(len(self.utts))
+        bs = self.batch_size
+        return [[self.utts[j] for j in order[i: i + bs]]
+                for i in range(0, len(order) - bs + 1, bs)]
+
+    def _data(self, skip: int = 0):
+        batches = self._epoch_utts(self.loop.epoch)[skip:]
+
+        def gen():
+            with torch.no_grad():
+                for utts in batches:
+                    yield self.make_batch(utts)
+
+        return Prefetcher(gen)
+
+    def _on_device(self, arrays: dict) -> dict:
+        return {k: v if torch.is_tensor(v) else torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
+
+    def train_loop(self):
+        return self.loop.run()
+
+
+class VITSTrainer(_EpochTrainer):
+    """VITS on the LJSpeech recipe: text encoder, posterior, flows, SDP and
+    the HiFi-GAN decoder against MPD + MSD."""
+
+    def __init__(self, args, cfg):
+        self.args, self.cfg = args, cfg
+        self.logger = get_logger("vits")
+        self.device = resolve_device(getattr(args, "device", None))
+        strict_float32()
+        p, t, mcfg = cfg["preprocess"], cfg["train"], cfg["model"]
+        self.mel_cfg = MelConfig.from_preprocess_cfg(p)
+        self.hop = p["hop_size"]
+        self.utts = []
+        for ds in cfg["dataset"]:
+            self.utts.extend(load_metadata(Path(p["processed_dir"]) / ds / "train.json"))
+        speakers = sorted({u.speaker or u.singer or "default" for u in self.utts})
+        self.spk2id = {s: i for i, s in enumerate(speakers)}
+        self.symbols = SymbolTable.from_file(
+            Path(p["processed_dir"]) / cfg["dataset"][0] / p["symbols_dict"])
+        self.phone_dir = {ds: Path(p["processed_dir"]) / ds / p["phone_dir"]
+                          for ds in cfg["dataset"]}
+        self.model_cfg = vits_config(cfg, len(self.symbols), len(speakers))
+        if self.model_cfg.decoder.hop_size != self.hop:
+            raise ValueError(f"decoder hop {self.model_cfg.decoder.hop_size} != preprocess "
+                             f"hop {self.hop}")
+        self.batch_size = t["batch_size"]
+        self.max_frames = t.get("max_frames", 600)
+        self.max_phones = t.get("max_phones", 120)
+        self.train_cfg = GANTrainConfig(
+            lr=t["adamw"]["lr"], adam_b1=t["adamw"]["adam_b1"], adam_b2=t["adamw"]["adam_b2"],
+            lr_decay=t["exponential_lr"]["lr_decay"],
+            compute_dtype=t.get("compute_dtype", "float32"))
+        seed = t.get("seed", 0)
+        with torch.device(self.device):
+            model = VITS(self.model_cfg)
+            disc = build_discriminator(cfg)
+        for i, module in enumerate((model, disc)):
+            init_like_flax(module, torch.Generator(self.device).manual_seed(seed + i))
+        model_summary({"vits": model, "discriminator": disc}, self.logger)
+        g, d = create_vits_states(model, disc, self.train_cfg, seed + 2)
+        step = make_vits_train_step(self.mel_cfg, self.train_cfg)
+
+        def train_step(states: TrainStates, batch: dict):
+            states["g"], states["d"], metrics = step(states["g"], states["d"], batch)
+            return states, metrics
+
+        self.loop = _loop(cfg, args, train_step, TrainStates(g=g, d=d), self._data,
+                          self.logger)
+        exp_dir = Path(cfg.get("log_dir", "ckpts")) / args.exp_name
+        (exp_dir / "spk2id.json").write_text(json.dumps(self.spk2id))
+
+    def _phones(self, u) -> list[int]:
+        ids = json.loads((self.phone_dir[u.dataset] / f"{u.uid}.json").read_text())
+        return intersperse(ids, 0) if self.cfg["preprocess"].get("add_blank", True) else ids
+
+    def make_batch(self, utts: list) -> dict:
+        """phones (B, L) int64, phone_mask (B, L), spec (B, T, n_fft/2+1),
+        spec_mask (B, T), audio (B, T · hop) and sid (B,) on the device."""
+        phones, audios = [], []
+        for u in utts:
+            phones.append(np.asarray(self._phones(u)[: self.max_phones], np.int64))
+            x, _ = load_wav(u.path, sr=self.mel_cfg.sample_rate)
+            n = min(len(x), self.max_frames * self.hop)
+            audios.append(x[: n // self.hop * self.hop])
+        ph, ph_len = pad_batch(phones)
+        au, au_len = pad_batch(audios)
+        audio = torch.from_numpy(au).to(self.device)
+        spec = linear_spectrogram(audio, self.mel_cfg).transpose(1, 2)
+        return self._on_device({
+            "phones": ph,
+            "phone_mask": (np.arange(ph.shape[1])[None] < ph_len[:, None]).astype(np.float32),
+            "spec": spec,
+            "spec_mask": (np.arange(spec.shape[1])[None] < (au_len // self.hop)[:, None])
+            .astype(np.float32),
+            "audio": audio,
+            "sid": np.asarray([self.spk2id.get(u.speaker or u.singer or "default", 0)
+                               for u in utts], np.int64)})
+
+
+def vits_config(cfg: dict, n_symbols: int, n_speakers: int) -> VITSConfig:
+    """The `VITSConfig` of ``cfg["model"]`` (``vits``, ``decoder``) and the
+    train block's ``segment_size``, as the JAX trainer and CLI build it."""
+    m = cfg["model"].get("vits") or {}
+    dec = cfg["model"].get("decoder")
+    inter = m.get("inter_channels", 192)
+    return VITSConfig(
+        num_phones=max(n_symbols + 1, 64), spec_channels=cfg["preprocess"]["n_fft"] // 2 + 1,
+        inter_channels=inter, hidden_channels=m.get("hidden_channels", 192),
+        filter_channels=m.get("filter_channels", 768), n_heads=m.get("n_heads", 2),
+        n_layers=m.get("n_layers", 6), n_speakers=n_speakers if n_speakers > 1 else 0,
+        segment_size=cfg["train"].get("segment_size", 32),
+        decoder=(HiFiGANConfig.from_model_cfg(dec, n_mel=inter) if dec
+                 else HiFiGANConfig(n_mel=inter)))
+
+
+def fs2_config(cfg: dict, n_symbols: int, n_speakers: int) -> FastSpeech2Config:
+    """The `FastSpeech2Config` of ``cfg["model"]["fastspeech2"]``, the mel
+    width and ``train.max_frames``, as the JAX trainer and CLI build it."""
+    m = cfg["model"].get("fastspeech2") or {}
+    return FastSpeech2Config(
+        num_phones=max(n_symbols + 1, 64), hidden=m.get("hidden", 256),
+        n_enc_layers=m.get("n_enc_layers", 4), n_dec_layers=m.get("n_dec_layers", 6),
+        n_heads=m.get("n_heads", 2), ffn_hidden=m.get("ffn_hidden", 1024),
+        kernel_size=m.get("kernel_size", 9), n_mel=cfg["preprocess"]["n_mel"],
+        max_frames=cfg["train"].get("max_frames", 600),
+        n_speakers=n_speakers if n_speakers > 1 else 0)
+
+
+class FastSpeech2Trainer(_EpochTrainer):
+    """FastSpeech2 on MFA durations: mel, pitch and energy targets made on
+    the device a batch."""
+
+    def __init__(self, args, cfg):
+        self.args, self.cfg = args, cfg
+        self.logger = get_logger("fs2")
+        self.device = resolve_device(getattr(args, "device", None))
+        strict_float32()
+        p, t = cfg["preprocess"], cfg["train"]
+        self.mel_cfg = MelConfig.from_preprocess_cfg(p)
+        self.f0_cfg = F0Config.from_preprocess_cfg(p)
+        self.hop = p["hop_size"]
+        utts, self.align = [], {}
+        table = SymbolTable.from_symbols(["_", "sil"])
+        for ds in cfg["dataset"]:
+            for u in load_metadata(Path(p["processed_dir"]) / ds / "train.json"):
+                tg = Path(p["processed_dir"]) / ds / "textgrids" / f"{u.uid}.TextGrid"
+                if not tg.is_file():
+                    continue
+                phones, durs = textgrid_to_durations(tg, self.hop, p["sample_rate"])
+                for ph in phones:
+                    table.add(ph)
+                self.align[u.uid] = (phones, durs)
+                utts.append(u)
+        if not utts:
+            raise AssertionError("no utterances with TextGrids; run MFA over the corpus "
+                                 "exported by prepare_mfa_corpus()")
+        self.utts, self.symbols = utts, table
+        speakers = sorted({u.speaker or "default" for u in utts})
+        self.spk2id = {s: i for i, s in enumerate(speakers)}
+        self.batch_size = t["batch_size"]
+        self.max_frames = t.get("max_frames", 600)
+        with torch.device(self.device):
+            model = FastSpeech2(fs2_config(cfg, len(table), len(speakers)))
+        init_like_flax(model, torch.Generator(self.device).manual_seed(t.get("seed", 0)))
+        model_summary({"fastspeech2": model}, self.logger)
+        opt = ClipAdamW(model.parameters(), t["adamw"]["lr"], max_norm=None)
+        state = TrainState(0, model, opt,
+                           torch.Generator(self.device).manual_seed(t.get("seed", 0) + 1))
+        self.loop = _loop(cfg, args, self.step, state, self._data, self.logger)
+        self.symbols.to_file(Path(cfg.get("log_dir", "ckpts")) / args.exp_name
+                             / "symbols.dict")
+
+    def make_batch(self, utts: list) -> dict:
+        """phones (B, L) int64, phone_mask, durations (B, L) int64, pitch
+        and energy (B, max_frames), mel (B, max_frames, n_mel) and sid (B,)
+        on the device."""
+        mf, hop = self.max_frames, self.hop
+        audios, phone_rows, dur_rows = [], [], []
+        for u in utts:
+            phones, durs = self.align[u.uid]
+            ids = np.asarray([self.symbols[ph] for ph in phones], np.int64)
+            keep = np.cumsum(durs) <= mf
+            if not keep.any():  # the first phone alone outlasts max_frames
+                keep[0] = True
+                durs = np.minimum(durs, mf)
+            phone_rows.append(ids[keep])
+            dur_rows.append(np.asarray(durs, np.int64)[keep])
+            x, _ = load_wav(u.path, sr=self.mel_cfg.sample_rate)
+            n = int(dur_rows[-1].sum())
+            seg = np.zeros(mf * hop, np.float32)
+            seg[: min(len(x), n * hop)] = x[: n * hop]
+            audios.append(seg)
+        ph, ph_len = pad_batch(phone_rows)
+        du, _ = pad_batch(dur_rows)
+        au = torch.from_numpy(np.stack(audios)).to(self.device)
+        mel = mel_spectrogram(au, self.mel_cfg)  # (B, n_mel, N)
+        f0, _ = yin_f0(au, self.f0_cfg)
+        energy = energy_from_log_mel(mel)
+        pitch = torch.log1p(f0)
+        pitch = (pitch - pitch.mean()) / (pitch.std(unbiased=False) + 1e-5)
+        energy = (energy - energy.mean()) / (energy.std(unbiased=False) + 1e-5)
+        return self._on_device({
+            "phones": ph,
+            "phone_mask": (np.arange(ph.shape[1])[None] < ph_len[:, None]).astype(np.float32),
+            "durations": du, "pitch": pitch, "energy": energy, "mel": mel.transpose(1, 2),
+            "sid": np.asarray([self.spk2id.get(u.speaker or "default", 0) for u in utts],
+                              np.int64)})
+
+    def step(self, state: TrainState, batch: dict):
+        """One AdamW step on `fastspeech2_loss` with the batch's durations,
+        pitch and energy teacher-forced → (state, the loss parts and total)."""
+        model = state.model
+        out = model(batch["phones"], batch["phone_mask"], batch["durations"], batch["pitch"],
+                    batch["energy"], batch["sid"])
+        loss, aux = fastspeech2_loss(out, batch)
+        params = state.optimizer.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        state.apply_gradients([torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params, grads)])
+        return state, {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+
+
+TRAINERS = {"VITS": VITSTrainer, "VALLE": VALLETrainer, "FastSpeech2": FastSpeech2Trainer,
+            "MaskGCT": MaskGCTTrainer}

@@ -11,13 +11,17 @@ module's parameters finds each one's leaf in the tree by its dotted path
   plain convolutions (strided or not) of NSF-HiFiGAN's source, Vocos and
   the MS-STFT and MS-SB-CQT discriminators;
 - weight-normalised convolutions (`WNConv1d`, `WNConv2d`,
-  `WNConvTranspose1d`): the kernel as a Conv's (a 2-D one's (kh, kw,
-  in/groups, out) → (out, in/groups, kh, kw)), a ConvTranspose's (k, in,
-  out) → (in, out, k) reversed along k; the ``scale`` from the one sibling
-  ``WeightNorm_*`` scope that holds the leaf ``"<conv name>/kernel/scale"``;
+  `WNConvTranspose1d`) and Dense (`WNLinear`): the kernel as a Conv's (a
+  2-D one's (kh, kw, in/groups, out) → (out, in/groups, kh, kw)), a
+  ConvTranspose's (k, in, out) → (in, out, k) reversed along k, a Dense's
+  (in, out) → (out, in); the ``scale`` from the one sibling ``WeightNorm_*``
+  scope that holds the leaf ``"<name>/kernel/scale"``;
 - LayerNorm ``scale`` → ``weight``; Embedding ``embedding`` → ``weight``;
 - any other parameter (RMSNorm ``scale``, ConvNeXt ``gamma``, a VQ
-  ``codebook``, MaskGCT's ``mask_emb``) carries over under its own name;
+  ``codebook``, MaskGCT's ``mask_emb``, VITS's relative embeddings
+  ``rel_k``/``rel_v``, a flow's ``m``/``logs``, FastSpeech2's
+  ``pitch_bins`` and Postnet's ``bn_i_scale``/``bn_i_bias``) carries over
+  under its own name;
 - a quantized projection (`QDense`, `QDense4`) takes ``kernel_q`` (K, N)
   as its integers, transposed to (N, K) (int4 leaves are read as int8 and
   packed two per byte along K), and ``scale`` as float32.
@@ -49,7 +53,12 @@ from amphion_tpu_torch.models.vocoders.vocos import ConvNeXtBlock
 from amphion_tpu_torch.modules.activations import Snake, SnakeBeta
 from amphion_tpu_torch.modules.llama import AdaptiveRMSNorm, QDense, QDense4, RMSNorm
 from amphion_tpu_torch.modules.quantize import FactorizedVectorQuantize, VectorQuantize
-from amphion_tpu_torch.modules.weight_norm import WNConv1d, WNConv2d, WNConvTranspose1d
+from amphion_tpu_torch.modules.weight_norm import (
+    WNConv1d,
+    WNConv2d,
+    WNConvTranspose1d,
+    WNLinear,
+)
 from amphion_tpu_torch.ops.kernels.int4_matmul import pack_int4
 
 
@@ -81,12 +90,14 @@ def _weight_norm_scale(tree: dict, path: list[str]) -> np.ndarray:
 
 def _flax_leaf(module: nn.Module, tree: dict, path: list[str], pname: str):
     """The Flax array for parameter ``pname`` of ``module``, in torch layout."""
-    if isinstance(module, (WNConv1d, WNConv2d, WNConvTranspose1d)):
+    if isinstance(module, (WNConv1d, WNConv2d, WNConvTranspose1d, WNLinear)):
         if pname == "scale":
             return _weight_norm_scale(tree, path)
         if pname == "bias":
             return _leaf(tree, path, "bias")
-        kernel = _leaf(tree, path, "kernel")  # (k, in, out) or (kh, kw, in, out)
+        kernel = _leaf(tree, path, "kernel")  # (in, out), (k, in, out) or (kh, kw, in, out)
+        if isinstance(module, WNLinear):
+            return kernel.T
         if isinstance(module, WNConv2d):
             return kernel.transpose(3, 2, 0, 1)
         if isinstance(module, WNConv1d):
@@ -153,9 +164,15 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
       bias 0; the adaptive RMSNorm's ``to_weight`` kernel 0 and bias 1;
     - Conv (``nn.Conv1d``, ``nn.Conv2d``): kernel lecun_normal (fan_in =
       in/groups · k, or in · kh · kw), bias 0;
-    - weight-normalised Conv and ConvTranspose: kernel lecun_normal
-      (fan_in = in/groups · k, or in/groups · kh · kw, for a Conv and in · k
-      for a ConvTranspose, as Flax counts it), bias 0, scale 1;
+    - weight-normalised Dense, Conv and ConvTranspose: kernel
+      lecun_normal (fan_in = in for a Dense, in/groups · k, or in/groups ·
+      kh · kw, for a Conv and in · k for a ConvTranspose, as Flax counts
+      it), bias 0, scale 1;
+    - a Dense or Conv built with ``kernel_init=zeros`` in JAX (a flow's
+      last projection), marked ``flax_zero_init``: kernel and bias 0;
+    - a module with a ``flax_init_(generator)`` method (the relative
+      attention's embeddings, a flow's affine, FastSpeech2's bins and
+      Postnet's affine) draws its own parameters;
     - Snake and SnakeBeta: α (and β) 0 in log scale, else 1;
     - Embed (``nn.Embedding``): normal with std 1/√features;
     - LayerNorm and RMSNorm scales 1, LayerNorm bias 0;
@@ -172,7 +189,12 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
         own = dict(sub.named_parameters(recurse=False))
         if own and all(id(p) in done for p in own.values()):
             continue  # drawn by its parent (to_weight)
-        if isinstance(sub, AdaptiveRMSNorm):
+        if getattr(sub, "flax_zero_init", False):
+            for p in own.values():
+                nn.init.zeros_(p)
+        elif hasattr(sub, "flax_init_"):
+            sub.flax_init_(g)
+        elif isinstance(sub, AdaptiveRMSNorm):
             nn.init.zeros_(sub.to_weight.weight)
             nn.init.ones_(sub.to_weight.bias)
             done.update(id(p) for p in sub.to_weight.parameters())
@@ -181,8 +203,8 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(sub.weight, fan_in, g)
             if sub.bias is not None:
                 nn.init.zeros_(sub.bias)
-        elif isinstance(sub, (WNConv1d, WNConv2d, WNConvTranspose1d)):
-            w = sub.weight  # (out, in/g, k...) or, transposed, (in, out, k)
+        elif isinstance(sub, (WNConv1d, WNConv2d, WNConvTranspose1d, WNLinear)):
+            w = sub.weight  # (out, in(/g, k...)) or, transposed, (in, out, k)
             transposed = isinstance(sub, WNConvTranspose1d)
             fan_in = w.shape[0] * w.shape[2] if transposed else w[0].numel()
             _lecun_normal_(w, fan_in, g)

@@ -74,7 +74,7 @@ at the full width of ``config/vevo.json`` with random weights from
   `serving/loadgen.py`, and `bins/tts/inference.py` in its MaskGCT mode;
 - VALL-E zero-shot TTS as `bins/serve.py --backend valle` serves it, at the
   width of ``egs/tts/VALLE/exp_config.json`` (1024 x 12 layers, FFN 2816,
-  8 x 1 024 codes; 256 AR steps, the CLI's 768 cut for the run's time): port
+  8 x 1 024 codes; 192 AR steps, the CLI's 768 cut for the run's time): port
   checkpoints from random weights, the model and codec built by
   `bins/tts/inference.build_valle`; the int8 continuous engine (graphs)
   with four requests a chunk apart, each equal to its solo decode and to
@@ -94,6 +94,19 @@ at the full width of ``config/vevo.json`` with random weights from
   steps 3-4 to the bit (#6 and #7 24 and 32 a step), `bins/tts/inference.py`
   from the trained checkpoints, small full-width steps card vs CPU, and
   #6/#7 at the recorded training shapes against float64 and timed;
+- VITS and FastSpeech2 training and inference as the LJSpeech recipes run
+  them (`classic_tts_phase`): 49 synthetic LJSpeech-layout clips of about
+  3 s (48 train: one epoch of three batches of 16) with MFA-style
+  TextGrids, `bins/tts/preprocess.py`, `bins/tts/train.py` at the widths
+  and batch of ``egs/tts/{VITS,FastSpeech2}`` in float32 (VITS: the
+  relative-position encoder, posterior WaveNet, flows, alignment search,
+  SDP and HiFi-GAN 512 against MPD + MSD; #3 twice a step, the generated
+  segments through `LogMelFn`; FastSpeech2: #3 once a step on the batch)
+  for 3 steps and a resume of the last, one step of each on 4 rows card vs
+  CPU, a profiled step of each (busy share, the alignment's share), the
+  inference CLI (VITS; FastSpeech2 with Griffin-Lim and with a HiFi-GAN
+  checkpoint), #3 on the runs' recorded inputs against `log_mel_ref` and
+  timed at (16, 3 840) and (16, 72 000);
 
 checking outputs, launch counts against counts worked out beforehand and
 batch invariance, and holding the int8/int4 matmul kernels against their
@@ -111,11 +124,11 @@ paths gave it (by CUDA-graph replays, beside SDPA timed the same way for
 the flash kernels), and profiles a decode chunk of each engine, two steps
 of each trainer and one 10 s copy synthesis. Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--max-new 256]
+    python3 chip_smoke.py [--seed 0] [--max-new 192]
 
 ``--max-new`` is the voice window batches' AR depth; the voice engine runs
-stop at ``ENGINE_MAX_NEW`` (192) steps and VALL-E's at ``VALLE_MAX_NEW``
-(256), cuts made for the run's time. Exits nonzero on any failure, and at
+stop at ``ENGINE_MAX_NEW`` (128) steps and VALL-E's at ``VALLE_MAX_NEW``
+(192), cuts made for the run's time. Exits nonzero on any failure, and at
 once when there is no CUDA card. The
 last three lines of standard output are the ``{"kernels": [...]}`` timing
 line, then the card's name and power limit (``nvidia-smi
@@ -1222,7 +1235,7 @@ def padding_phase(v8: dict) -> dict:
 ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_STEP = 4, 64, 64  # bins/serve.py: --slots, --chunk, --len_step
 # the staggered engine runs of the voice pipeline (graph engine, eager engine
 # and four solo decodes a dtype): cut below --max-new for the run's time
-ENGINE_MAX_NEW = 192
+ENGINE_MAX_NEW = 128
 INVARIANT_ROWS = (1, 2, 4, 8)
 ENGINE_GROUPS = [("int8_gemv", ("gemv_kernel", "::Int8,")),
                  ("int4_gemv", ("gemv_kernel", "::Int4,")),
@@ -4269,7 +4282,7 @@ def mg_kernel_rows(flash_calls, snake_shapes: dict, launches: dict, flash_err: f
 
 VALLE_CONFIG = "egs/tts/VALLE/exp_config.json"
 VALLE_LAYERS, VALLE_HIDDEN, VALLE_FFN, VALLE_VOCAB = 12, 1024, 2816, 1025  # config/valle.json
-VALLE_MAX_NEW = 256  # the AR's steps (the CLI's --max_new is 768; cut for the run's time)
+VALLE_MAX_NEW = 192  # the AR's steps (the CLI's --max_new is 768; cut for the run's time)
 # (prompt text, target text): 65, 83, 109 and 118 phones (char G2P), one phone bucket (128)
 VALLE_TEXTS = [
     ("the quick brown fox jumps", "over the lazy dog by the old river bank"),
@@ -5615,10 +5628,599 @@ def tts_training_phase(seed: int, kernels: dict, rows: list) -> dict:
     return out
 
 
+# -- VITS and FastSpeech2: the LJSpeech recipes through bins/tts/{preprocess,train,inference}.py
+
+CLASSIC_CLIPS = 49  # 48 train (three batches of 16: three steps are one epoch) + 1 test
+CLASSIC_SECONDS = (2.6, 3.4)  # about 3 s: 520-680 linear frames at hop 120 (max_frames 600 cuts)
+CLASSIC_STEPS, CLASSIC_SAVE = 3, 2  # steps of the run; the checkpoint the resume starts from
+CLASSIC_MODELS = {"vits": "egs/tts/VITS/exp_config.json",
+                  "fs2": "egs/tts/FastSpeech2/exp_config.json"}
+CLASSIC_MEL_PER_STEP = {"vits": 2, "fs2": 1}  # VITS: mel loss real + fake; FS2: the batch
+CLASSIC_ROWS = 4  # the rows of the card-vs-CPU steps (full width; the CPU's time)
+CLASSIC_TEXT = "the quick brown fox jumps over the lazy dog"
+
+
+def classic_corpus(root, seed: int) -> list:
+    """``CLASSIC_CLIPS`` seeded 24 kHz clips in LJSpeech's layout
+    (``metadata.csv`` of ``id|raw|normalized``, ``wavs/<id>.wav``), each a
+    sentence of 7-11 common words → [(uid, text, samples)]."""
+    from amphion_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(seed + 61)
+    (root / "raw" / "wavs").mkdir(parents=True, exist_ok=True)
+    out, rows = [], []
+    for i in range(CLASSIC_CLIPS):
+        uid = f"LJ{i // 10:03d}-{i:04d}"
+        x = synth_audio(rng, float(rng.uniform(*CLASSIC_SECONDS)))
+        save_wav(root / "raw" / "wavs" / f"{uid}.wav", x, SR)
+        text = " ".join(rng.choice(TTS_WORDS, int(rng.integers(7, 12)))).capitalize() + "."
+        rows.append(f"{uid}|{text}|{text}")
+        out.append((uid, text, len(x)))
+    (root / "raw" / "metadata.csv").write_text("\n".join(rows) + "\n")
+    return out
+
+
+def classic_textgrids(directory, clips: list, seed: int) -> None:
+    """A long-format Praat TextGrid (what MFA writes) per clip: the char
+    G2P's symbols of its text (a space as ``sp``), the clip's hop frames
+    split over them at seeded cuts, so the durations sum to its frames."""
+    from amphion_tpu_torch.text.g2p import G2PModule
+
+    g2p = G2PModule("char")
+    rng = np.random.default_rng(seed + 62)
+    directory.mkdir(parents=True, exist_ok=True)
+    for uid, text, samples in clips:
+        phones = ["sp" if p == " " else p for p in g2p.phonemes(text)]
+        frames = samples // HOP
+        cuts = np.sort(rng.choice(np.arange(1, frames), len(phones) - 1, replace=False))
+        edges = np.concatenate([[0], cuts, [frames]]) * HOP / SR
+        lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0 ",
+                 f"xmax = {edges[-1]} ", "tiers? <exists> ", "size = 1 ", "item []: ",
+                 "    item [1]:", '        class = "IntervalTier" ', '        name = "phones" ',
+                 "        xmin = 0 ", f"        xmax = {edges[-1]} ",
+                 f"        intervals: size = {len(phones)} "]
+        for j, p in enumerate(phones):
+            lines += [f"        intervals [{j + 1}]:", f"            xmin = {edges[j]} ",
+                      f"            xmax = {edges[j + 1]} ", f'            text = "{p}" ']
+        (directory / f"{uid}.TextGrid").write_text("\n".join(lines) + "\n")
+
+
+def classic_config(root, name: str, run: str, **train) -> str:
+    """The recipe of ``name`` at its published widths and batch over the
+    corpus, a checkpoint at every saving step (``save_checkpoint_stride``
+    [1]: the recipes' [5] and [10] are epoch strides), a log dir and a
+    metrics file under ``root``."""
+    cfg = {"base_config": os.path.abspath(CLASSIC_MODELS[name]), "dataset": ["ljspeech"],
+           "dataset_path": {"ljspeech": str(root / "raw")}, "log_dir": str(root / "ckpts"),
+           "preprocess": {"processed_dir": str(root / name / "processed")},
+           "train": {"log_interval": 1, "metrics_path": str(root / f"{name}_{run}.jsonl"),
+                     "save_checkpoint_stride": [1], "keep_last": [-1], **train}}
+    path = root / f"{name}_{run}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def classic_preprocess(root, name: str, clips: list, kernels: dict, seed: int) -> dict:
+    """`bins/tts/preprocess.py` with the recipe's switches (VITS: phones;
+    FastSpeech2: mels, F0, energy, phones) and, for FastSpeech2, the
+    TextGrids MFA would write; launches: kernel 3 once an acoustic batch
+    (FastSpeech2), none for VITS."""
+    import inspect
+
+    from amphion_tpu_torch.bins.tts import preprocess as pre
+    from amphion_tpu_torch.data.processors.acoustic import extract_acoustic_features
+    from amphion_tpu_torch.data.samplers import LengthBucketSampler
+
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    pre.main(["--config", classic_config(root, name, "pre"), "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kernels.items()}
+    want = {n: 0 for n in kernels}
+    d = root / name / "processed" / "ljspeech"
+    if name == "fs2":
+        budget = inspect.signature(extract_acoustic_features).parameters["max_tokens"].default
+        lengths = [max(n // HOP * HOP, HOP) for _, _, n in clips]
+        want["mel"] = len(LengthBucketSampler(lengths, max_tokens=budget, shuffle=False))
+        classic_textgrids(d / "textgrids", clips, seed)
+    files = {sub: len(list((d / sub).glob("*"))) for sub in ("phones", "mels", "f0", "energy")
+             if (d / sub).is_dir()}
+    check(f"classic preprocess {name}: launches and files",
+          got == want and files.get("phones") == CLASSIC_CLIPS and (d / "symbols.dict").is_file()
+          and (name == "vits" or files.get("mels") == files.get("f0") == CLASSIC_CLIPS),
+          f"launches {got} (predicted {want}); files {files}, {wall:.1f} s")
+    return {"wall_s": wall, "launches": got, "files": files}
+
+
+class MASTimer:
+    """While installed, wraps VITS's `maximum_path` in a profiler range
+    (``maximum_path``) and, with ``sync``, times each call by the host clock
+    between two synchronizes; keeps the first call's lattice."""
+
+    def __init__(self, sync: bool = False):
+        from amphion_tpu_torch.models.tts.vits import vits as vits_mod
+
+        self.mod, self.fn, self.sync = vits_mod, vits_mod.maximum_path, sync
+        self.ms, self.first = [], None
+        vits_mod.maximum_path = self
+
+    def __call__(self, value, mask):
+        if self.first is None:
+            self.first = (value.clone(), mask.clone())
+        if self.sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("maximum_path"):
+            out = self.fn(value, mask)
+        if self.sync:
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def remove(self) -> None:
+        self.mod.maximum_path = self.fn
+
+
+def classic_train(root, name: str, kernels: dict) -> dict:
+    """The recipe through `bins/tts/train.main` on the card for
+    ``CLASSIC_STEPS`` steps (one epoch) with a checkpoint at
+    ``CLASSIC_SAVE``, kernel 3's calls recorded (the first of each shape, at
+    both module names: `mel_spectrogram`'s and `LogMelFn`'s); then a resume
+    from that checkpoint for the last step, whose losses and weights must
+    equal the whole run's (bit-equal, or within 1e-5 relative and 1e-6
+    absolute where a CUDA scatter's atomics reorder a sum). Launch counts
+    are set to 0 just before each run and read just after: kernel 3
+    ``CLASSIC_MEL_PER_STEP`` a step, no other kernel."""
+    import shutil
+
+    from amphion_tpu_torch.bins.tts.train import main as train_main
+    from amphion_tpu_torch.ops import mel as mel_ops
+    from amphion_tpu_torch.ops.kernels import mel as mel_kernel_mod
+    from amphion_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    cfg = classic_config(root, name, "run", max_steps=CLASSIC_STEPS,
+                         save_checkpoints_steps=CLASSIC_SAVE)
+    recs = [CallRecorder(m, "log_mel", first_of_each_shape()) for m in (mel_ops, mel_kernel_mod)]
+    for k in kernels.values():
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trainer = train_main(["--config", cfg, "--exp_name", name, "--device", DEV])
+        torch.cuda.synchronize()
+    finally:
+        for rec in recs:
+            rec.remove()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = {n: 0 for n in kernels}
+    want["mel"] = CLASSIC_MEL_PER_STEP[name] * CLASSIC_STEPS
+    check(f"classic train {name}: launches", launches == want,
+          f"{launches} (predicted {want}: #3 {CLASSIC_MEL_PER_STEP[name]} a step x "
+          f"{CLASSIC_STEPS} steps)")
+    rows = metrics(root, f"{name}_run")
+    keys = [k for k in rows[0] if k not in ("step", "epoch", "step_s", "sec_per_step")]
+    check(f"classic train {name}: losses", len(rows) == CLASSIC_STEPS and all(
+        math.isfinite(r[k]) for r in rows for k in keys),
+        f"{[{k: round(r[k], 5) for k in keys} for r in rows]}")
+    secs = [r["step_s"] for r in rows]
+    model = trainer.loop.states["g"].model if name == "vits" else trainer.loop.states.model
+    perf = {"params": sum(p.numel() for p in model.parameters()), "step_s": secs,
+            "median_step_s": statistics.median(secs[1:]), "max_memory_allocated_gib": peak,
+            "launches_per_step": launches["mel"] / CLASSIC_STEPS, "run_wall_s": wall}
+    if name == "vits":
+        d = trainer.loop.states["d"].model
+        perf["params_d"] = sum(p.numel() for p in d.parameters())
+    log(f"classic train {name} perf ({nvidia_smi()}): {perf['params'] / 1e6:.2f} M params, "
+        f"float32, median step {perf['median_step_s']:.4f} s over steps 2-{CLASSIC_STEPS}, "
+        f"peak {peak:.2f} GiB; " + json.dumps(perf))
+    mel_calls = [c for rec in recs for c in rec.calls]
+    ckdir = root / "ckpts" / name / "checkpoint"
+    start = next(p for p in ckdir.glob("epoch-*") if f"_step-{CLASSIC_SAVE:07d}_" in p.name)
+    cfg2 = classic_config(root, name, "resume", max_steps=CLASSIC_STEPS,
+                          save_checkpoints_steps=0)
+    for k in kernels.values():
+        k.reset()
+    again = train_main(["--config", cfg2, "--exp_name", f"{name}_resume", "--resume",
+                        "--resume_from_ckpt_path", str(start), "--device", DEV])
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in kernels.items()}
+    want["mel"] = CLASSIC_MEL_PER_STEP[name] * (CLASSIC_STEPS - CLASSIC_SAVE)
+    rerun = metrics(root, f"{name}_resume")
+    first = rows[CLASSIC_SAVE:]
+    loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(rerun, first) for k in keys)
+    del again
+    gc.collect()
+    states = [CheckpointManager(root / "ckpts" / n / "checkpoint").restore_raw(
+        map_location="cpu")[0] for n in (name, f"{name}_resume")]
+    if name == "vits":
+        a, b = ({**{f"g.{k}": v for k, v in s["g"]["model"].items()},
+                 **{f"d.{k}": v for k, v in s["d"]["model"].items()}} for s in states)
+    else:
+        a, b = states[0]["model"], states[1]["model"]
+    w_err = max((a[k] - b[k]).abs().max().item() for k in a)
+    bit = loss_rel == 0.0 and w_err == 0.0
+    check(f"classic train {name}: resume", len(rerun) == CLASSIC_STEPS - CLASSIC_SAVE
+          and got == want and a.keys() == b.keys() and loss_rel <= 1e-5 and w_err <= 1e-6,
+          f"step {CLASSIC_STEPS} from the step-{CLASSIC_SAVE} checkpoint: losses max rel diff "
+          f"{loss_rel:.3g} (tol 1e-5), weights max|diff| {w_err:.3g} (tol 1e-6), bit-equal "
+          f"{bit}; launches {got} (predicted {want})")
+    del states, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "ckpts" / f"{name}_resume", ignore_errors=True)
+    shutil.rmtree(start, ignore_errors=True)
+    return {"trainer": trainer, "perf": perf, "launches": launches, "mel_calls": mel_calls,
+            "resume": {"loss_max_rel_diff": loss_rel, "weights_max_abs_diff": w_err,
+                       "bit_equal": bit}}
+
+
+def classic_mel_checks(name: str, calls: list) -> dict:
+    """Kernel 3 on the training runs' own inputs (the first call of each
+    shape): within 1e-3 of `log_mel_ref` and bit-equal on a relaunch (the
+    MaskGCT phase's rule)."""
+    from amphion_tpu_torch.ops.kernels.mel import log_mel, log_mel_ref
+
+    bad, worst, shapes = [], 0.0, []
+    for i, (y, fb, n_fft, hop, win, clip) in calls:
+        got = log_mel(y, fb, n_fft, hop, win, clip)
+        err = (got - log_mel_ref(y, fb, n_fft, hop, win, clip)).abs().max().item()
+        again = torch.equal(log_mel(y, fb, n_fft, hop, win, clip), got)
+        worst = max(worst, err)
+        shapes.append(tuple(y.shape))
+        if not (err <= 1e-3 and again):
+            bad.append((i, tuple(y.shape), err, again))
+    check(f"classic {name} #3: the training run's calls against log_mel_ref (tol 1e-3), "
+          "relaunched",
+          bool(calls) and not bad, f"shapes {shapes}, max|err| {worst:.3g}; failing (call, "
+          f"shape, err, relaunch bit-equal): {bad}")
+    return {"max_abs_err": worst, "shapes": shapes}
+
+
+def classic_mel_timing(y: torch.Tensor, mel_cfg, grad: bool) -> dict:
+    """Kernel 3 at a training shape by CUDA-graph replays beside its plain
+    version and the `torch.stft` chain (`library_mel`); with ``grad`` also
+    `LogMelFn`'s backward (autograd of `log_mel_ref`, no kernel). Bound: the
+    larger of the row's least operations (`mel_work`) at 67 TFLOP/s and the
+    samples read and log-mel written once at 3.35 TB/s."""
+    from amphion_tpu_torch.ops.mel import _fbank, mel_spectrogram, mel_spectrogram_ref
+
+    b, t = y.shape
+    fb = _fbank(mel_cfg, y.device)
+    flops_row, _, _ = mel_work([t], fb)
+    with torch.no_grad():
+        ms = graph_ms(lambda: mel_spectrogram(y, mel_cfg))
+        plain = graph_ms(lambda: mel_spectrogram_ref(y, mel_cfg), iters=5)
+        lib = graph_ms(lambda: library_mel(y, fb, mel_cfg.clip_val))
+    ops, nbytes = b * flops_row, 4.0 * (b * t + b * fb.shape[0] * (t // mel_cfg.hop_size))
+    out = {"shape": [b, t], "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": max(ops / PEAK_F32, nbytes / HBM) * 1e3,
+           "bound_by": "operations" if ops / PEAK_F32 >= nbytes / HBM else "bytes"}
+    if grad:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            leaf = y.clone().requires_grad_()
+            mel = mel_spectrogram(leaf, mel_cfg)
+            g = torch.randn_like(mel)
+        torch.cuda.current_stream().wait_stream(side)
+        grad = lambda: torch.autograd.grad(mel, leaf, g, retain_graph=True)  # noqa: E731
+        try:
+            out["backward_ms"], how = graph_ms(grad, iters=10, stream=side), "graph replays"
+        except Exception as exc:  # noqa: BLE001 - the profiler measures it instead
+            log(f"  backward capture failed ({type(exc).__name__}: {exc}); profiler time")
+            torch.cuda.synchronize()
+            out["backward_ms"], how = profiled_ms(grad), "profiler"
+        out["backward_is"] = f"LogMelFn.backward: autograd of log_mel_ref, no kernel ({how})"
+    return out
+
+
+def classic_card_vs_cpu(name: str, trainer, seed: int) -> dict:
+    """One step at the recipe's width on ``CLASSIC_ROWS`` rows of the
+    trainer's first batch, on the CPU and on the card from the same weights
+    (the trained ones), batch and draws: every loss within 1e-3 relative.
+    For VITS also the alignment of `VITS.train_forward`: where the card's
+    differs from the CPU's (the lattice's float32 sums round otherwise, and
+    a near-tie flips a frame; `maximum_path` itself is held equal on one
+    lattice in `classic_profile`), the differing frames and the lattices'
+    difference are printed, and the duration loss, which follows the
+    alignment, is held instead on the same durations (the CPU's) through
+    the duration predictor on both devices."""
+    import copy
+
+    from amphion_tpu_torch.models.tts.vits.vits_trainer import (
+        create_vits_states, make_vits_train_step, vits_draws)
+    from amphion_tpu_torch.runtime.train_state import TrainState
+    from amphion_tpu_torch.runtime.optimizers import ClipAdamW
+
+    utts = trainer._epoch_utts(0)[0][:CLASSIC_ROWS]
+    batch = trainer.make_batch(utts)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    res, attn, lattice, sdp = {}, {}, {}, {}
+    if name == "vits":
+        g0, d0 = (s.model for s in (trainer.loop.states["g"], trainer.loop.states["d"]))
+        draws = vits_draws(g0, cpu_batch, torch.Generator().manual_seed(seed + 63))
+        for dev, b in (("cpu", cpu_batch), ("card", batch)):
+            device = next(iter(b.values())).device
+            g, d = copy.deepcopy(g0).to(device), copy.deepcopy(d0).to(device)
+            dr = {k: v.to(device) for k, v in draws.items()}
+            mas = MASTimer()
+            try:
+                with torch.no_grad():
+                    attn[dev] = g.train_forward(b["phones"], b["phone_mask"], b["spec"],
+                                                b["spec_mask"], b["sid"], **dr)["attn"].cpu()
+            finally:
+                mas.remove()
+            lattice[dev] = (mas.first[0] * mas.first[1]).cpu()
+            with torch.no_grad():  # the duration loss on the CPU's durations
+                x, _, _ = g.text_encoder(b["phones"], b["phone_mask"])
+                nll = g.duration_predictor(x, b["phone_mask"], w=attn["cpu"].sum(-1).to(device),
+                                           e_q=dr["e_q"])
+                sdp[dev] = torch.mean(nll / b["phone_mask"].sum(-1).clamp(min=1.0)).item()
+            gs, ds = create_vits_states(g, d, trainer.train_cfg, seed)
+            _, _, met = make_vits_train_step(trainer.mel_cfg, trainer.train_cfg)(gs, ds, b, dr)
+            res[dev] = {k: v.item() for k, v in met.items()}
+            del g, d, gs, ds
+    else:
+        m0 = trainer.loop.states.model
+        for dev, b in (("cpu", cpu_batch), ("card", batch)):
+            device = next(iter(b.values())).device
+            m = copy.deepcopy(m0).to(device)
+            state = TrainState(0, m, ClipAdamW(m.parameters(), 1e-3, max_norm=None),
+                               torch.Generator(device))
+            _, met = trainer.step(state, b)
+            res[dev] = {k: v.item() for k, v in met.items()}
+            del m, state
+    rel = {k: abs(res["card"][k] - res["cpu"][k]) / max(abs(res["cpu"][k]), 1e-12)
+           for k in res["cpu"]}
+    extra, frames_differ, gate = "", 0, dict(rel)
+    out = {"losses": res, "max_rel": max(rel.values())}
+    if attn:
+        frames_differ = int((attn["card"] != attn["cpu"]).any(dim=1).sum())
+        lat_rel = ((lattice["card"] - lattice["cpu"]).abs().max()
+                   / lattice["cpu"].abs().max()).item()
+        sdp_rel = abs(sdp["card"] - sdp["cpu"]) / abs(sdp["cpu"])
+        if frames_differ:
+            gate["g_dur"] = sdp_rel
+        out.update(alignment_frames_differ=frames_differ, lattice_max_rel_diff=lat_rel,
+                   dur_loss_same_durations={**sdp, "rel": sdp_rel})
+        extra = (f"; alignment: {frames_differ} of {int(cpu_batch['spec_mask'].sum())} frames "
+                 f"align to another phone on the card (the lattices differ by {lat_rel:.2g} of "
+                 f"max|lattice|); the duration loss on the CPU's durations card {sdp['card']:.6f}"
+                 f" vs CPU {sdp['cpu']:.6f} (rel {sdp_rel:.2g}), held in place of g_dur where "
+                 "the alignments differ")
+    check(f"classic {name}: a full-width step on {CLASSIC_ROWS} rows, card vs CPU",
+          max(gate.values()) <= 1e-3,
+          f"losses card {res['card']} vs CPU {res['cpu']}, max rel {max(rel.values()):.3g}, "
+          f"held {max(gate.values()):.3g} (tol 1e-3){extra}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def classic_profile(name: str, trainer) -> dict:
+    """One step of the trainer on its first batch under torch.profiler
+    (host and device): wall, device busy share (the union of the device
+    records over the wall), the top kernels, and for VITS the alignment's
+    share: its range's host time over the step's wall (the search is a
+    loop of small launches, so its host time is its wall) and the device
+    time of the kernels it launched; then three steps with the alignment
+    timed between synchronizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    utts = trainer._epoch_utts(0)[0]
+    batch = trainer.make_batch(utts)
+    states = trainer.loop.states
+    mas = MASTimer() if name == "vits" else None
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            states, _ = trainer.loop.train_step(states, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        if mas is not None:
+            mas.remove()
+    host_names = {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU}
+    spans, seen = [], set()
+    for e in prof.profiler.kineto_results.events():
+        key = (e.name(), e.start_ns(), e.duration_ns())
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in host_names
+                and key not in seen):
+            seen.add(key)
+            spans.append(key)
+    union_ns, end = 0, -1
+    for _, start, dur in sorted(spans, key=lambda x: x[1]):
+        if start + dur > end:
+            union_ns += start + dur - max(start, end)
+            end = start + dur
+    by_name = {}
+    for nm, _, dur in spans:
+        by_name[nm] = by_name.get(nm, 0.0) + dur / 1e6
+    top = sorted(((ms, nm[:80]) for nm, ms in by_name.items()), reverse=True)[:8]
+    out = {"wall_s": wall, "device_busy_s": union_ns / 1e9,
+           "device_busy_share": union_ns / 1e9 / wall, "device_records": len(spans),
+           "top_kernels_ms": [[nm, ms] for ms, nm in top]}
+    if mas is not None:
+        rng = [e for e in prof.key_averages() if e.key == "maximum_path"]
+        host_ms = rng[0].cpu_time_total / 1e3 if rng else float("nan")
+        dev_ms = rng[0].device_time_total / 1e3 if rng else float("nan")
+        out["alignment"] = {"range_host_ms": host_ms, "range_device_ms": dev_ms,
+                            "share_of_profiled_step": host_ms / 1e3 / wall}
+        timer = MASTimer(sync=True)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                states, _ = trainer.loop.train_step(states, batch)
+            torch.cuda.synchronize()
+            steps_s = (time.perf_counter() - t0) / 3
+        finally:
+            timer.remove()
+        value, mask = timer.first
+        from amphion_tpu_torch.ops.mas import maximum_path
+
+        same = torch.equal(maximum_path(value, mask).cpu(),
+                           maximum_path(value.cpu(), mask.cpu()))
+        out["alignment"].update({
+            "synced_ms": timer.ms, "synced_step_s": steps_s,
+            "share_of_synced_step": statistics.median(timer.ms) / 1e3 / steps_s,
+            "lattice": list(value.shape), "card_equals_cpu": same})
+        check("classic vits: maximum_path on the card equals the CPU's on the step's lattice",
+              same, f"lattice {tuple(value.shape)}; synced search {statistics.median(timer.ms):.2f} "
+              f"ms of a {steps_s * 1e3:.1f} ms step")
+    check(f"classic {name} trace", union_ns > 0 and bool(top),
+          f"device busy {union_ns / 1e9:.4g} s of {wall:.4g} s; top {top[:3]}")
+    return out
+
+
+def classic_cli(root, name: str, extra: list, label: str) -> dict:
+    """`bins/tts/inference.py` from the trained checkpoint: a finite 24 kHz
+    wav whose length is the model's frame mask × hop (Griffin-Lim: frames −
+    1)."""
+    from amphion_tpu_torch.bins.tts import inference as tts_cli_mod
+    from amphion_tpu_torch.data.audio_io import load_wav
+
+    out = str(root / f"{label}.wav")
+    t0 = time.perf_counter()
+    info = tts_cli_mod.main(["--config", classic_config(root, name, "cli"), "--exp_name", name,
+                             "--text", CLASSIC_TEXT, "--output_path", out, "--device", DEV,
+                             *extra])
+    wall = time.perf_counter() - t0
+    wav, sr = load_wav(out)
+    gl = name == "fs2" and not extra
+    want = (info["frames"] - (1 if gl else 0)) * HOP
+    check(f"classic {label} CLI from the trained checkpoint (bins/tts/inference.py)",
+          sr == SR and info["frames"] >= 2 and len(wav) == want == info["samples"]
+          and bool(np.isfinite(wav).all()),
+          f"{len(wav)} samples at {sr} Hz, the frame mask {info['frames']} frames (want "
+          f"{want} samples), max|x| {float(np.abs(wav).max()):.3g}, {wall:.1f} s")
+    return {"wall_s": wall, "frames": info["frames"], "samples": len(wav)}
+
+
+def classic_vocoder(root, seed: int) -> str:
+    """A HiFi-GAN checkpoint at ``egs/vocoder/gan/hifigan``'s width (80
+    mels, hop 120) from random weights, with its config beside it, as
+    `bins/tts/inference.py --vocoder_ckpt` reads it."""
+    from amphion_tpu_torch.runtime.vocoder_trainer import build_generator, save_generator
+    from amphion_tpu_torch.utils.config import load_config, save_config
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    cfg = load_config("egs/vocoder/gan/hifigan/exp_config.json")
+    gen, hop = build_generator(cfg, cfg["preprocess"]["n_mel"])
+    assert hop == HOP
+    init_like_flax(gen.to(DEV), torch.Generator(DEV).manual_seed(seed + 64))
+    save_generator(root / "hifigan" / "checkpoint", gen)
+    save_config(root / "hifigan" / "exp_config.json", cfg)
+    return str(root / "hifigan" / "checkpoint")
+
+
+def classic_tts_phase(seed: int, kernels: dict, rows: list) -> dict:
+    """VITS and FastSpeech2 as the LJSpeech recipes run them
+    (egs/tts/{VITS,FastSpeech2}): a synthetic LJSpeech corpus with MFA-style
+    TextGrids, `bins/tts/preprocess.py`, `bins/tts/train.py` at the
+    recipes' widths and batch (VITS 192 x 6 text encoder, 16-layer
+    posterior, 4 flows, SDP, HiFi-GAN 512 against MPD + MSD, segments of 32
+    frames; FastSpeech2 256 x (4 + 6) FFT blocks) in float32 for 3 steps
+    and a resume, the steps card vs CPU, a profiled step of each with the
+    alignment's share, `bins/tts/inference.py` (VITS; FastSpeech2 with
+    Griffin-Lim and with a HiFi-GAN checkpoint), and kernel 3 on the runs'
+    own inputs and timed at their shapes, whose rows join ``rows``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(key: str) -> None:
+        nonlocal t0
+        laps[key] = laps.get(key, 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's weight gradients sum in order
+    root = Path(tempfile.mkdtemp(prefix="classic_"))
+    out = {}
+    try:
+        clips = classic_corpus(root, seed)
+        voc = classic_vocoder(root, seed)
+        lap("corpus")
+        for name in CLASSIC_MODELS:
+            pre = classic_preprocess(root, name, clips, kernels, seed)
+            lap(f"{name}_preprocess")
+            run = classic_train(root, name, kernels)
+            lap(f"{name}_train_and_resume")
+            trainer = run.pop("trainer")
+            vs_cpu = classic_card_vs_cpu(name, trainer, seed)
+            lap(f"{name}_card_vs_cpu")
+            prof = classic_profile(name, trainer)
+            lap(f"{name}_profile")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            cli = {name: classic_cli(root, name, [], name)}
+            if name == "fs2":
+                cli["fs2_gl"] = cli.pop("fs2")
+                cli["fs2_hifigan"] = classic_cli(root, name, ["--vocoder_ckpt", voc],
+                                                 "fs2_hifigan")
+            lap(f"{name}_cli")
+            out[name] = {"preprocess": pre, **run, "card_vs_cpu": vs_cpu, "profile": prof,
+                         "cli": cli}
+        errs = {n: classic_mel_checks(n, out[n]["mel_calls"]) for n in CLASSIC_MODELS}
+        calls = out["vits"]["mel_calls"] + out["fs2"]["mel_calls"]
+        from amphion_tpu_torch.ops.mel import MelConfig
+        from amphion_tpu_torch.utils.config import load_config
+
+        mel_cfg = MelConfig.from_preprocess_cfg(load_config(CLASSIC_MODELS["fs2"])["preprocess"])
+        by_shape = {}
+        for _, (y, *_) in calls:
+            by_shape.setdefault(tuple(y.shape), y)
+        timing = {}
+        for name, grad in (("vits", True), ("fs2", False)):
+            shape = max((s for s in by_shape if (s[1] > 10000) == (name == "fs2")),
+                        key=lambda s: s[1])
+            timing[name] = classic_mel_timing(by_shape[shape], mel_cfg, grad)
+            t = timing[name]
+            log(f"timing classic #3 {name} {shape} ({nvidia_smi()}): kernel {t['ms']:.5f} ms, "
+                f"plain {t['plain_ms']:.5f}, torch.stft chain {t['library_ms']:.5f}, bound "
+                f"{t['bound_ms']:.5f} ({t['bound_by']})"
+                + (f"; LogMelFn backward {t['backward_ms']:.5f} ms" if grad else ""))
+        lap("mel_checks_and_timing")
+        for name, label in (("vits", "VITS mel loss: the real segments forward and the "
+                                     "generated ones through LogMelFn, a step"),
+                            ("fs2", "FastSpeech2's batch mels, a step")):
+            t, o = timing[name], out[name]
+            rows.append(_row(f"mel_spectrogram_{name}_training", "mel.cu", 425,
+                             o["launches"]["mel"], errs[name]["max_abs_err"], t["ms"],
+                             t["plain_ms"],
+                             t["bound_ms"], t["bound_by"], t["library_ms"],
+                             shape=f"{tuple(t['shape'])} f32", launches_are=(
+                                 f"the {CLASSIC_STEPS}-step run at the recipe's batch ({label}), "
+                                 "counted at the wrapper"),
+                             launches_per_step=o["perf"]["launches_per_step"],
+                             recorded_shapes=errs[name]["shapes"],
+                             **({"backward": {k: t[k] for k in ("backward_ms", "backward_is")}}
+                                if name == "vits" else {}),
+                             timing="CUDA-graph replays on a recorded training input"))
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+        shutil.rmtree(root, ignore_errors=True)
+    log("classic tts laps (s): " + json.dumps(laps))
+    log(f"classic tts ({nvidia_smi()}): " + json.dumps(
+        {n: {k: o[k] for k in ("perf", "preprocess", "resume", "card_vs_cpu", "profile", "cli")}
+         for n, o in out.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new", type=int, default=256,
+    ap.add_argument("--max-new", type=int, default=192,
                     help="AR decode steps of the voice runs (bins/serve.py's default is "
                          "768; cut so that the whole run stays well inside its time)")
     args = ap.parse_args()
@@ -5729,6 +6331,8 @@ def main() -> int:
     lap("valle")
     tts_training_phase(args.seed, kernels, rows)
     lap("tts training")
+    classic_tts_phase(args.seed, kernels, rows)
+    lap("classic tts")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

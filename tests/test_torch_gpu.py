@@ -38,7 +38,8 @@ def _close(out, ref, dtype):
         assert ((out - ref).norm() / ref.norm()).item() <= 1e-2
 
 
-@pytest.mark.parametrize("b,t", [(1, 24000), (4, 120000), (2, 119 * 120), (1, 96000)])
+@pytest.mark.parametrize("b,t", [(1, 24000), (4, 120000), (2, 119 * 120), (1, 96000),
+                                 (16, 3840), (16, 72000)])
 def test_mel_kernel_matches_plain(cuda, b, t):
     g = torch.Generator(cuda).manual_seed(t)
     y = torch.randn((b, t), generator=g, device=cuda) * 0.3
@@ -1095,12 +1096,13 @@ def test_mel_kernel_under_inference_mode(cuda):
 # -- GAN vocoder training: LogMelFn (kernel 3 under grad) and a small step ---------
 
 
-@pytest.mark.parametrize("b,t", [(16, 7680), (2, 24000 + 37)])
+@pytest.mark.parametrize("b,t", [(16, 7680), (2, 24000 + 37), (16, 3840)])
 def test_log_mel_fn_forward_is_kernel_3_and_grad_is_plain_autograd(cuda, b, t):
     """`mel_spectrogram` under grad runs kernel 3 once through `LogMelFn`:
     the forward within 1e-3 of `log_mel_ref`, the signal's gradient equal
     to the bit to autograd of `log_mel_ref` on the same inputs (the GAN
-    trainer's batch, 16 x 7680, and a ragged length)."""
+    trainer's batch, 16 x 7680, a ragged length, and VITS's generated
+    segments, 16 x 3840)."""
     from amphion_tpu_torch.ops.kernels.mel import log_mel_ref
     from amphion_tpu_torch.ops.mel import _fbank
 
@@ -1378,3 +1380,80 @@ def test_valle_train_step_card_matches_cpu(cuda):
     for name, ref in res["cpu"][1].items():
         err = (res["cuda"][1][name] - ref).abs().max().item()
         assert err <= 1e-3 * ref.abs().max().item(), name
+
+
+# -- VITS and FastSpeech2: the alignment search on the card and a small VITS step ---------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_maximum_path_on_the_card_equals_the_cpu(cuda, seed):
+    """`ops/mas.maximum_path` on the card equals the CPU's to the bit: a
+    random lattice at a VITS batch's shape with ragged text and mel lengths,
+    and one of small integers (ties everywhere)."""
+    from amphion_tpu_torch.ops.mas import maximum_path
+
+    g = torch.Generator().manual_seed(seed)
+    b, tt, tm = 16, 120, 600
+    value = torch.randn((b, tt, tm), generator=g) * 10.0
+    if seed:
+        value = torch.randint(-2, 3, (b, tt, tm), generator=g).float()
+    text = torch.randint(20, tt + 1, (b,), generator=g)
+    mel = torch.randint(300, tm + 1, (b,), generator=g)
+    mask = ((torch.arange(tt)[None, :, None] < text[:, None, None])
+            & (torch.arange(tm)[None, None, :] < mel[:, None, None])).float()
+    ref = maximum_path(value, mask)
+    out = maximum_path(value.to(cuda), mask.to(cuda))
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ref.sum(1), mask[:, 0, :])
+
+
+def test_small_vits_step_card_vs_cpu(cuda):
+    """One small float32 `make_vits_train_step` (kernel 3 twice: the real
+    segments, then the generated ones through `LogMelFn`) on the card and on
+    the CPU from the same weights, batch and draws: every loss within 1e-3
+    relative, the alignment equal."""
+    import copy
+
+    from amphion_tpu_torch.models.tts.vits.vits import VITS, VITSConfig
+    from amphion_tpu_torch.models.tts.vits.vits_trainer import (
+        create_vits_states, make_vits_train_step, vits_draws)
+    from amphion_tpu_torch.models.vocoders.gan_trainer import (
+        CombinedDiscriminator, GANTrainConfig)
+    from amphion_tpu_torch.models.vocoders.hifigan import HiFiGANConfig
+    from amphion_tpu_torch.ops.mel import linear_spectrogram
+    from amphion_tpu_torch.utils.convert import init_like_flax
+
+    g = torch.Generator().manual_seed(5)
+    dec = HiFiGANConfig(upsample_rates=(5, 4, 3, 2), upsample_initial_channel=32,
+                        resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),), n_mel=32)
+    vits = init_like_flax(VITS(VITSConfig(num_phones=40, inter_channels=32, hidden_channels=32,
+                                          filter_channels=64, n_layers=2, segment_size=16,
+                                          decoder=dec)), g)
+    disc = init_like_flax(CombinedDiscriminator(channel_mult=0.125), g)
+    b, frames = 2, 80
+    audio = torch.randn((b, frames * 120), generator=g) * 0.3
+    pm = (torch.arange(30)[None] < torch.tensor([30, 21])[:, None]).float()
+    batch = {"phones": torch.randint(1, 40, (b, 30), generator=g) * pm.long(),
+             "phone_mask": pm, "spec": linear_spectrogram(audio, MelConfig()).transpose(1, 2),
+             "spec_mask": (torch.arange(frames)[None] < torch.tensor([80, 61])[:, None]).float(),
+             "audio": audio, "sid": torch.zeros(b, dtype=torch.long)}
+    draws = vits_draws(vits, batch, g)
+    res = {}
+    for dev in ("cpu", cuda):
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        dr = {k: v.to(dev) for k, v in draws.items()}
+        gm, dm = copy.deepcopy(vits).to(dev), copy.deepcopy(disc).to(dev)
+        with torch.no_grad():
+            attn = gm.train_forward(bt["phones"], bt["phone_mask"], bt["spec"], bt["spec_mask"],
+                                    **dr)["attn"].cpu()
+        n = MEL.launches
+        gs, ds = create_vits_states(gm, dm, GANTrainConfig())
+        _, _, met = make_vits_train_step(MelConfig(), GANTrainConfig())(gs, ds, bt, dr)
+        if str(dev) != "cpu":
+            torch.cuda.synchronize()
+            assert MEL.launches == n + 2
+        res[str(dev)] = ({k: v.item() for k, v in met.items()}, attn)
+    (ref, attn_ref), (got, attn_got) = res["cpu"], res["cuda"]
+    assert torch.equal(attn_got, attn_ref)
+    for k, v in ref.items():
+        assert abs(got[k] - v) <= 1e-3 * abs(v), (k, got[k], v)

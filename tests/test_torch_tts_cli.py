@@ -365,6 +365,6 @@ def test_cli_maskgct_mode(tmp_path):
     assert sr == SR and len(wav) % 8 == 0 and np.abs(wav).max() > 0
     np.testing.assert_array_equal(wav, pcm)
     with pytest.raises(NotImplementedError, match="A6"):
-        _run_cli(["--config", str(REPO / "egs/tts/VITS/exp_config.json"), "--text", "hi",
-                  "--output_path", str(tmp_path / "vits.wav"), "--device", "cpu"])
+        _run_cli(["--config", str(REPO / "egs/tts/Jets/exp_config.json"), "--text", "hi",
+                  "--output_path", str(tmp_path / "jets.wav"), "--device", "cpu"])
 

@@ -208,7 +208,7 @@ def test_cli_runs_every_stage(processed, tmp_path):
 
 def test_unported_paths_raise_with_their_label(tmp_path):
     with pytest.raises(NotImplementedError, match="A6.7"):
-        preprocess_dataset("ljspeech", str(tmp_path), str(tmp_path / "out"))
+        preprocess_dataset("vctk", str(tmp_path), str(tmp_path / "out"))
     with pytest.raises(ValueError, match="unsupported dataset"):
         preprocess_dataset("no_such_corpus", str(tmp_path), str(tmp_path / "out"))
     cfg = corpus_config(tmp_path, tmp_path / "out")
